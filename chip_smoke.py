@@ -7,13 +7,18 @@ Phases, each of which fails the run:
   1. build the hand-written kernels from ``speakerverification_tpu_torch/csrc``
      (one ``nvcc`` per source, all started together);
   2. hold each kernel against its plain PyTorch version on the card at the
-     serving shapes, and time kernel, plain version and library call;
+     main paths' shapes, and time kernel, plain version and library call;
   3. path A: the default Raw3_ECAPA model at full width behind the HTTP
      serving app (``/healthz``, ``/embed``, ``/score``), mel kernel counted;
   4. path B: ECAPA_TDNN at 1024 channels with ``conv_backend: pallas``,
      one serving batch, mel and cascade kernels counted;
-  5. throughput of both paths.
-Both paths are compared with the same model's plain path on the CPU.
+  5. path C: offline trial evaluation (``inference(h, eval_=True)``, the
+     ``--do_infer --eval`` verb) of Raw3_ECAPA at full width with
+     ``quant: int8`` on synthetic WAVs, mel and int8 GEMM kernels counted,
+     scores held against the float path on the same trials; then the
+     eval wall of a list of VoxCeleb1-O's size (4,880 files, 37,720 trials);
+  6. throughput and a profile of all three paths.
+Every path is compared with the same model's plain path on the CPU.
 
 The script imports nothing of the JAX package. hparams are built in code
 (they mirror ``yaml/raw3_ecapa.yaml`` and ``yaml/ecapa_tdnn.yaml``, which
@@ -31,6 +36,7 @@ import time
 # tensor cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 
 # the serving-relevant keys of yaml/raw3_ecapa.yaml (path A) and
@@ -100,13 +106,16 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float):
 # ----------------------------------------------------------------------
 # phase 1-2: kernels
 # ----------------------------------------------------------------------
+KERNELS = ("mel_frontend", "res2net_cascade", "quant_matmul")
+
+
 def build_kernels():
     from speakerverification_tpu_torch.ops import _build
     t0 = time.time()
-    _build.build("mel_frontend", "res2net_cascade")
-    log(f"[build] both kernels built in {time.time() - t0:.1f} s "
+    _build.build(*KERNELS)
+    log(f"[build] {len(KERNELS)} kernels built in {time.time() - t0:.1f} s "
         f"into {_build.BUILD_DIR}")
-    for name in ("mel_frontend", "res2net_cascade"):
+    for name in KERNELS:
         text = (_build.BUILD_DIR / f"{name}.log").read_text()
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -291,19 +300,102 @@ def check_cascade_kernel(dev, gen):
     return results
 
 
+def fmt_ms(v) -> str:
+    return "n/a" if v is None else f"{v:.4f} ms"
+
+
+def check_quant_kernel(dev, gen):
+    """K3 against its plain version, bit for bit: Raw3_ECAPA's hot layer
+    (a 1x1 1024 -> 1024 conv at 1,575 frames, 160 crops) in fp32 and
+    bf16, its final Dense (160 x 3072 -> 320), and an unaligned shape."""
+    import torch
+    import torch.nn.functional as F
+    from speakerverification_tpu_torch.ops import quant_matmul as qm
+    results = []
+    shapes = [("hot conv fp32", (160, 1024, 1575), 1024, torch.float32),
+              ("hot conv bf16", (160, 1024, 1575), 1024, torch.bfloat16),
+              ("dense fp32", (160, 3072), 320, torch.float32),
+              ("unaligned dense fp32", (70, 96), 50, torch.float32)]
+    for label, x_shape, N, dtype in shapes:
+        K = x_shape[1]
+        x = torch.randn(*x_shape, generator=gen, device=dev).to(dtype)
+        w = torch.randn(N, K, generator=gen, device=dev) / K ** 0.5
+        bias = 0.1 * torch.randn(N, generator=gen, device=dev)
+        wq, s_w = qm.quantize_weight(w)
+        act = 0.9 * x.float().abs().max().item()     # a few inputs saturate
+        got = qm.quant_matmul(x, wq, s_w, bias, act)
+        ref = qm.quant_matmul_plain(x, wq, s_w, bias, act)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        ok = (bool(torch.equal(got, ref))
+              and bool(torch.isfinite(got.float()).all()))
+        log(f"[K3 {label}] out {tuple(got.shape)} {str(dtype)[6:]} "
+            f"max_abs_err {err:.3e} (bit-exact required) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"int8 GEMM kernel disagrees with its plain version ({label})")
+
+        conv = len(x_shape) == 3
+        M = x_shape[0] * x_shape[2] if conv else x_shape[0]
+        item = x.element_size()
+        flops = 2.0 * M * K * N
+        nbytes = M * K * item + K * N + M * N * item
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_INT8)
+        s_x, inv_sx = qm.act_scales(act)
+        scale = s_w * float(s_x)
+        wq_t = wq.T.contiguous()
+
+        def library():
+            rows = x.transpose(1, 2).reshape(-1, K) if conv else x
+            xq = torch.clamp(torch.round(rows.float() * inv_sx), -127,
+                             127).to(torch.int8)
+            out = (torch._int_mm(xq, wq_t).float() * scale + bias).to(dtype)
+            return (out.reshape(x_shape[0], x_shape[2], N).transpose(1, 2)
+                    .contiguous() if conv else out)
+
+        # torch._int_mm takes M > 16 and K, N multiples of 8
+        lib_ok = M > 16 and K % 8 == 0 and N % 8 == 0
+        res = {
+            "name": "quant_matmul", "shape": label, "max_abs_err": err,
+            "ms": cuda_ms(lambda: qm.quant_matmul(x, wq, s_w, bias, act)),
+            "plain_ms": cuda_ms(lambda: qm.quant_matmul_plain(
+                x, wq, s_w, bias, act), iters=5, warmup=1),
+            "library_ms": cuda_ms(library) if lib_ok else None,
+            "bound_ms": b_ms, "bound_by": b_by, "gop": flops / 1e9,
+        }
+        float_ms = None
+        if conv:
+            wf = w[:, :, None].to(dtype)
+            float_ms = cuda_ms(lambda: F.conv1d(x, wf, bias.to(dtype)))
+        log(f"[K3 {label}] kernel {res['ms']:.4f} ms  plain "
+            f"{res['plain_ms']:.4f} ms  _int_mm chain "
+            f"{fmt_ms(res['library_ms'])}  float conv1d "
+            f"{fmt_ms(float_ms)}  bound {b_ms:.4f} ms by {b_by}  "
+            f"{flops / 1e9:.1f} GOP {nbytes / 1e9:.3f} GB")
+        results.append(res)
+    return results
+
+
 # ----------------------------------------------------------------------
-# phase 3-5: the port's serving paths
+# phase 3-6: the port's paths
 # ----------------------------------------------------------------------
+def _kernel_modules():
+    from speakerverification_tpu_torch.ops import (
+        mel_frontend,
+        quant_matmul,
+        res2net_cascade,
+    )
+    return {"mel_frontend": mel_frontend, "res2net_cascade": res2net_cascade,
+            "quant_matmul": quant_matmul}
+
+
 def reset_counts():
-    from speakerverification_tpu_torch.ops import mel_frontend, res2net_cascade
-    mel_frontend.launches = 0
-    res2net_cascade.launches = 0
+    for mod in _kernel_modules().values():
+        mod.launches = 0
 
 
 def read_counts() -> dict:
-    from speakerverification_tpu_torch.ops import mel_frontend, res2net_cascade
-    return {"mel_frontend": mel_frontend.launches,
-            "res2net_cascade": res2net_cascade.launches}
+    return {name: mod.launches for name, mod in _kernel_modules().items()}
 
 
 def randomize_bn_(model, seed: int) -> None:
@@ -451,9 +543,9 @@ def path_a(card: str) -> dict:
     if counts["mel_frontend"] != batches or batches < 2:
         fail(f"path A: mel kernel launched {counts['mel_frontend']} times "
              f"for {batches} batches")
-    if counts["res2net_cascade"] != 0:
-        fail("path A: the hybrid's ECAPA ran the cascade kernel, but "
-             "conv_backend defaults to xla")
+    if counts["res2net_cascade"] != 0 or counts["quant_matmul"] != 0:
+        fail("path A: the float hybrid ran the cascade or int8 kernel "
+             "(conv_backend defaults to xla, no quant)")
 
     # the requests' own crops, one serving batch, on the card and the CPU
     crops = [load_wav(x, h["audio_spec"], num_eval=num_eval) for x in pcm]
@@ -512,10 +604,180 @@ def path_b() -> dict:
         fail(f"path B embeddings wrong: shape {emb.shape}")
     log(f"[B] ECAPA_TDNN 1024 conv_backend pallas: {n} crops -> {emb.shape}, "
         f"unit norm, finite; launches per forward {counts}")
-    if counts != {"mel_frontend": 1, "res2net_cascade": 3}:
+    if counts != {"mel_frontend": 1, "res2net_cascade": 3, "quant_matmul": 0}:
         fail(f"path B: expected 1 mel and 3 cascade launches, got {counts}")
     compare_with_cpu(engine, waves, "B")
     return {"engine": engine, "counts": counts, "waves": waves, "n_crops": n}
+
+
+def cosines(a, b):
+    import numpy as np
+    return np.sum(a * b, axis=1) / (np.linalg.norm(a, axis=1)
+                                    * np.linalg.norm(b, axis=1))
+
+
+def write_trial_data(root, sr: int, n_spk: int = 4, n_utt: int = 4,
+                     n_trials: int = 40, f0_step: float = 70.0
+                     ) -> tuple[list, str]:
+    """``n_spk`` speakers x ``n_utt`` utterances of 3 s (a speaker's
+    harmonic tone over noise) as 16-bit WAVs, and ``n_trials`` trials
+    over them, target and non-target in turn."""
+    import numpy as np
+    from speakerverification_tpu_torch.data.audio import write_wav
+    rng = np.random.default_rng(6)
+    tt = np.arange(int(3.0 * sr)) / sr
+    files = {}
+    for spk in range(n_spk):
+        for utt in range(n_utt):
+            f0 = 110.0 + f0_step * spk
+            sig = sum(0.25 / (k + 1) * np.sin(2 * np.pi * f0 * (k + 1) * tt
+                                              + rng.uniform(0, 6))
+                      for k in range(3)) + 0.05 * rng.normal(0, 1, tt.size)
+            path = root / "wav" / f"spk{spk}" / f"u{utt}.wav"
+            write_wav(path, sig.astype(np.float32), sr)
+            files.setdefault(spk, []).append(str(path))
+    lines = []
+    for i in range(n_trials):
+        s1 = int(rng.integers(n_spk))
+        if i % 2 == 0:
+            a, b = rng.choice(n_utt, 2, replace=False)
+            lines.append(f"1 {files[s1][a]} {files[s1][b]}")
+        else:
+            s2 = int((s1 + 1 + rng.integers(n_spk - 1)) % n_spk)
+            lines.append(f"0 {files[s1][int(rng.integers(n_utt))]} "
+                         f"{files[s2][int(rng.integers(n_utt))]}")
+    trials = root / "trials.txt"
+    trials.write_text("\n".join(lines) + "\n")
+    return sorted(p for v in files.values() for p in v), str(trials)
+
+
+def read_scores(h):
+    import numpy as np
+    from speakerverification_tpu_torch.inference import run_dirs
+    rows = (run_dirs(h)["result"] / "evaluation_results.csv").read_text()
+    return np.array([float(r.split(",")[1])
+                     for r in rows.strip().splitlines()[1:]])
+
+
+def path_c(tmp) -> dict:
+    """Offline trial evaluation of Raw3_ECAPA at full width with int8
+    extraction: the ``--do_infer --eval --quant int8`` verb."""
+    import copy
+
+    import numpy as np
+    import torch
+    from speakerverification_tpu_torch.builder import encoder_from_hparams
+    from speakerverification_tpu_torch.data.loader import EvalDataLoader
+    from speakerverification_tpu_torch.inference import (
+        InferenceEngine,
+        inference,
+    )
+    from speakerverification_tpu_torch.quant import make_int8_embed_fn
+    from speakerverification_tpu_torch.weights import init_weights_
+
+    sr = RAW3_ECAPA_HPARAMS["audio_spec"]["sample_rate"]
+    num_eval = RAW3_ECAPA_HPARAMS["num_eval"]
+    files, trials = write_trial_data(tmp, sr)
+    # random weights from the seed with random BN, as a port weights file
+    model = encoder_from_hparams(RAW3_ECAPA_HPARAMS)
+    init_weights_(model, torch.Generator().manual_seed(
+        RAW3_ECAPA_HPARAMS["seed"]))
+    randomize_bn_(model, seed=5)
+    weights = tmp / "raw3_ecapa.pt"
+    torch.save(model.state_dict(), weights)
+    h = {**RAW3_ECAPA_HPARAMS, "quant": "int8", "eval_batch_size": BATCH_UTTS,
+         "evaluation_file": trials, "save_folder": str(tmp / "save"),
+         "initial_model_infer": str(weights),
+         "dataloader_options": {"num_workers": 4}}
+    batches = -(-len(files) // BATCH_UTTS)
+
+    reset_counts()
+    t0 = time.time()
+    report = inference(h, eval_=True)["eval"]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    int8_scores = read_scores(h)
+    log(f"[C] eval of {len(int8_scores)} trials over "
+        f"{len(files)} files ({batches} batches of {BATCH_UTTS}x{num_eval} "
+        f"crops), int8: {wall:.2f} s wall; EER {report['eer']:.4f}% "
+        f"minDCF {report['min_dcf']:.4f} thr {report['threshold']:.4f}")
+    log(f"[C] launches in the eval run: {counts}")
+    # the first batch also runs the float model once, on the 32 rows that
+    # calibrate the static scales: one more mel launch
+    want = {"mel_frontend": batches + 1, "res2net_cascade": 0,
+            "quant_matmul": 22 * batches}
+    if counts != want:
+        fail(f"path C: expected {want}, got {counts}")
+    finite = all(np.isfinite(report[k]) for k in
+                 ("eer", "min_dcf", "threshold", "auc"))
+    if not finite or len(int8_scores) != 40 \
+            or not np.isfinite(int8_scores).all():
+        fail(f"path C: report or scores not finite / incomplete: {report}")
+
+    inference({**h, "quant": None}, eval_=True)
+    diff = np.abs(int8_scores - read_scores(h))
+    log(f"[C] per-trial |int8 - float| score: max {diff.max():.3e} mean "
+        f"{diff.mean():.3e} over {len(diff)} trials")
+
+    # one loader batch on the card (the engine calibrates on it) against
+    # the same engine's plain int8 path on the CPU with the same scales,
+    # trimmed to two files to bound the CPU time
+    engine = InferenceEngine(h)
+    waves, _ = next(iter(EvalDataLoader(files, h["audio_spec"],
+                                        num_eval=num_eval,
+                                        batch_size=BATCH_UTTS)))
+    batch = waves.reshape(-1, waves.shape[-1])
+    got = engine.embed_fn(batch).cpu().numpy()
+    cpu = make_int8_embed_fn(copy.deepcopy(engine.model).cpu(),
+                             act_scales=engine.act_scales)
+    n_cpu = 2 * num_eval
+    ref = cpu(torch.from_numpy(batch[:n_cpu])).numpy()
+    cos = cosines(got[:n_cpu], ref)
+    ok = bool(np.isfinite(got).all()) and cos.min() >= 0.999
+    log(f"[C] int8 on the card vs the plain int8 path on the CPU, same "
+        f"scales, {n_cpu} crops: min cos {cos.min():.7f} (need >= 0.999) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("path C: int8 embeddings on the card disagree with the CPU")
+    float_engine = InferenceEngine({**h, "quant": None})
+    cos = cosines(got, float_engine.embed_fn(batch).cpu().numpy())
+    ok = cos.min() >= 0.99
+    log(f"[C] int8 vs float embeddings on the card, {len(batch)} crops: "
+        f"min cos {cos.min():.5f}, mean {cos.mean():.5f} (need >= 0.99) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("path C: int8 embeddings stray from the float path")
+    eval_at_list_size(engine, h, tmp / "vox1o")
+    return {"engine": engine, "counts": counts, "batches": batches,
+            "waves": batch}
+
+
+def eval_at_list_size(engine, h, root) -> None:
+    """Time the eval verb of an int8 engine that is already calibrated
+    and built on a trial list of VoxCeleb1-O's size (40 speakers, 4,874
+    files, 37,720 trials; here 40 x 122 = 4,880 synthetic 3 s files):
+    the wall of ``engine.evaluate`` (decode, extraction, scoring, the
+    CSV), per batch and per file, set-up and calibration left out."""
+    import numpy as np
+    t0 = time.time()
+    files, trials = write_trial_data(root, h["audio_spec"]["sample_rate"],
+                                     n_spk=40, n_utt=122, n_trials=37720,
+                                     f0_step=15.0)
+    t_write = time.time() - t0
+    report = engine.evaluate(trials)
+    with open(trials) as f:
+        n_files = len({p for ln in f for p in ln.split()[1:]})
+    batches = -(-n_files // BATCH_UTTS)
+    sec = report["seconds"]
+    if report["n_trials"] != 37720 or not np.isfinite(report["eer"]):
+        fail(f"path C at list size: incomplete or not finite: {report}")
+    log(f"[C list size] {report['n_trials']} trials over {n_files} files "
+        f"({batches} batches of {BATCH_UTTS}x{h['num_eval']} crops), int8, "
+        f"engine calibrated and built: {sec:.3f} s wall "
+        f"({1e3 * sec / batches:.2f} ms per batch, {n_files / sec:.1f} "
+        f"files/s, {3600 / sec:.1f} such lists per GPU-hour); "
+        f"WAVs written in {t_write:.1f} s beforehand")
 
 
 def throughput(label: str, engine, waves, num_eval: int, card: str) -> None:
@@ -580,11 +842,20 @@ def main() -> None:
     build_kernels()
     k1 = check_mel_kernel(dev, gen)
     k2 = check_cascade_kernel(dev, gen)
-    for r in k1 + k2:
+    k3 = check_quant_kernel(dev, gen)
+    for r in k1 + k2 + k3:
         log("[timing] " + json.dumps({**r, "card": card}))
 
     a = path_a(card)
     b = path_b()
+    import shutil
+    import tempfile
+    from pathlib import Path
+    tmp = Path(tempfile.mkdtemp(prefix="svtorch_eval_"))
+    try:
+        c = path_c(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     import numpy as np
     waves_a = np.clip(np.round(0.3 * np.random.default_rng(5).normal(
         0, 1, (a["n_crops"], a["samples"])) * 32768), -32768,
@@ -593,30 +864,35 @@ def main() -> None:
                RAW3_ECAPA_HPARAMS["num_eval"], card)
     throughput("B ECAPA_TDNN 1024", b["engine"], b["waves"],
                ECAPA_TDNN_HPARAMS["num_eval"], card)
+    throughput("C Raw3_ECAPA int8, eval batch", c["engine"], c["waves"],
+               RAW3_ECAPA_HPARAMS["num_eval"], card)
     profile("A", a["engine"], waves_a)
     profile("B", b["engine"], b["waves"])
-    launches = {k: a["counts"][k] + b["counts"][k]
-                for k in ("mel_frontend", "res2net_cascade")}
-    by_path = {k: {"A": a["counts"][k], "B": b["counts"][k]}
-               for k in launches}
+    profile("C", c["engine"], c["waves"])
+    paths = {"A": a["counts"], "B": b["counts"], "C": c["counts"]}
+    by_path = {k: {p: counts[k] for p, counts in paths.items()}
+               for k in KERNELS}
 
     main_shape = {"mel_frontend": "raw3_ecapa 8k",
-                  "res2net_cascade": "H128 B80 d2 float32"}
+                  "res2net_cascade": "H128 B80 d2 float32",
+                  "quant_matmul": "hot conv fp32"}
     meta = {
         "mel_frontend": ("speakerverification_tpu_torch/csrc/mel_frontend.cu",
                          "speakerverification_tpu/ops/pallas_frontend.py:68"),
         "res2net_cascade": (
             "speakerverification_tpu_torch/csrc/res2net_cascade.cu",
             "speakerverification_tpu/ops/pallas_res2net.py:64"),
+        "quant_matmul": ("speakerverification_tpu_torch/csrc/quant_matmul.cu",
+                         "speakerverification_tpu/ops/pallas_quant.py:42"),
     }
     kernels = []
-    for r in k1 + k2:
+    for r in k1 + k2 + k3:
         if r["shape"] != main_shape[r["name"]]:
             continue
         src, repl = meta[r["name"]]
         kernels.append({
             "name": r["name"], "route": "cuda", "source": src,
-            "replaces": repl, "launches": launches[r["name"]],
+            "replaces": repl, "launches": sum(by_path[r["name"]].values()),
             "launches_by_path": by_path[r["name"]],
             "shape": r["shape"], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -19,9 +19,20 @@ from speakerverification_tpu_torch.ops.frontend import FrontendConfig
 from speakerverification_tpu_torch.registry import MODELS
 
 __all__ = ["compute_dtype_from_hparams", "frontend_from_hparams",
-           "encoder_from_hparams", "build_model"]
+           "encoder_from_hparams", "build_model", "eval_normalize_from_hparams"]
 
 _BACKENDS = ("auto", "xla", "pallas")
+
+# loss heads whose embeddings are scored unnormalized (``test_normalize``
+# in speakerverification_tpu/losses/*.py); every other head normalizes
+_UNNORMALIZED_HEADS = frozenset({"Prototypical"})
+
+
+def eval_normalize_from_hparams(hparams: Mapping) -> bool:
+    """Whether the configured loss head (``criterion.name``, default
+    ``AAmSoftmax``) L2-normalizes embeddings at evaluation."""
+    name = (hparams.get("criterion") or {}).get("name", "AAmSoftmax")
+    return name not in _UNNORMALIZED_HEADS
 
 
 def compute_dtype_from_hparams(hparams: Mapping) -> Optional[torch.dtype]:

@@ -1,0 +1,105 @@
+"""Command-line entry point of the port (the ported part of ``cli/main.py``).
+
+    python -m speakerverification_tpu_torch.cli.main --do_infer --eval --config y.yaml
+    python -m speakerverification_tpu_torch.cli.main --do_infer --eval --quant int8 --config y.yaml
+    python -m speakerverification_tpu_torch.cli.main --do_serve --config y.yaml
+
+Both verbs run on CUDA unless ``--device cpu`` is given. Flags that are
+not mode flags override the YAML key of the same name. The other verbs
+(``--do_train``, ``--do_export``, ``--test``, ``--prepare``,
+``--predict``) exit with code 2: they are not ported yet; so does
+``--do_infer`` without a verb.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from speakerverification_tpu_torch.config import read_config
+
+# mode flags select what runs; they never land in the hparams
+_MODE_FLAGS = {"config", "do_train", "do_infer", "do_export", "do_serve",
+               "serve_host", "serve_port", "eval", "test", "prepare",
+               "predict", "device"}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("speakerverification_tpu_torch")
+    p.add_argument("--config", type=str, default=None)
+    p.add_argument("--do_train", action="store_true")
+    p.add_argument("--do_infer", action="store_true")
+    p.add_argument("--do_export", action="store_true")
+    p.add_argument("--do_serve", action="store_true",
+                   help="run the dynamic-batching embedding/scoring HTTP "
+                        "server")
+    p.add_argument("--serve_host", type=str, default=None)
+    p.add_argument("--serve_port", type=int, default=None)
+    p.add_argument("--eval", action="store_true")
+    p.add_argument("--test", action="store_true")
+    p.add_argument("--prepare", action="store_true")
+    p.add_argument("--predict", nargs="*", default=None)
+    p.add_argument("--device", type=str, default=None, choices=["cpu", "cuda"],
+                   help="where the model runs (default: cuda)")
+    p.add_argument("--eval_transport", type=str, default=None,
+                   choices=["float32", "int16"],
+                   help="host->device wire format of inference batches")
+    p.add_argument("--quant", type=str, default=None, choices=["int8"],
+                   help="int8 embedding extraction (static scales "
+                        "calibrated on the first batch)")
+    p.add_argument("--initial_model_infer", type=str, default=None,
+                   help="a torch.save'd state_dict of the port")
+    p.add_argument("--scoring_mode", type=str, default=None)
+    p.add_argument("--mixedprec", action="store_true", default=None,
+                   help="bf16 compute")
+    return p
+
+
+def load_hparams(args: argparse.Namespace) -> dict:
+    overrides = {k: v for k, v in vars(args).items()
+                 if v is not None and k not in _MODE_FLAGS}
+    return read_config(args.config, overrides=overrides)
+
+
+def _not_ported(what: str) -> int:
+    print(f"{what} is not ported yet", file=sys.stderr)
+    return 2
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.do_train or args.do_export:
+        return _not_ported("--do_train" if args.do_train else "--do_export")
+    if not args.config:
+        print("--config is required", file=sys.stderr)
+        return 2
+    hparams = load_hparams(args)
+
+    if args.do_infer:
+        # --predict with no files parses to [], which asks all the same
+        for verb, asked in (("--test", args.test), ("--prepare", args.prepare),
+                            ("--predict", args.predict is not None)):
+            if asked:
+                return _not_ported(verb)
+        if not args.eval:
+            print("--do_infer needs --eval, its only ported verb",
+                  file=sys.stderr)
+            return 2
+        from speakerverification_tpu_torch.inference import inference
+        inference(hparams, eval_=args.eval, device=args.device)
+        return 0
+
+    if args.do_serve:
+        from speakerverification_tpu_torch.serving import serve
+        serving = hparams.get("serving") or {}
+        serve(hparams, host=args.serve_host or serving.get("host", "0.0.0.0"),
+              port=int(args.serve_port or serving.get("port", 8008)),
+              device=args.device)
+        return 0
+
+    print("nothing to do: pass --do_infer or --do_serve", file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

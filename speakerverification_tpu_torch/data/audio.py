@@ -6,17 +6,20 @@ path of ``data/audio.py``'s ``load_wav``):
   stacked ``[num_eval, T]``; ``num_eval == 0`` → the whole file.
 
 WAV files are read with the standard library's ``wave`` module, 16-bit
-PCM only, scaled by 1/32768 and averaged to mono.
+PCM only, scaled by 1/32768 and averaged to mono; :func:`write_wav`
+writes them the same way.
 """
 
 from __future__ import annotations
 
 import wave
+from pathlib import Path
 from typing import Mapping, Optional, Union
 
 import numpy as np
 
-__all__ = ["AudioSpec", "load_wav", "normalize_amplitude", "read_wav"]
+__all__ = ["AudioSpec", "load_wav", "normalize_amplitude", "read_wav",
+           "write_wav"]
 
 DEFAULT_SPEC = {"sample_rate": 8000, "channels": 1, "sentence_len": 2.0,
                 "win_len": 0.025, "hop_len": 0.01}
@@ -57,6 +60,22 @@ def read_wav(path: str) -> tuple[np.ndarray, int]:
     if channels > 1:
         x = x.reshape(-1, channels).mean(axis=1)
     return np.ascontiguousarray(x, dtype=np.float32), sr
+
+
+def write_wav(path: Union[str, Path], audio: np.ndarray,
+              sample_rate: int) -> None:
+    """Write float audio ``[T]`` or ``[T, channels]`` in [-1, 1] as 16-bit
+    PCM (``x * 32767``, truncated, as the JAX package writes it)."""
+    audio = np.asarray(audio)
+    if audio.ndim == 1:
+        audio = audio[:, None]
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with wave.open(str(path), "wb") as f:
+        f.setnchannels(audio.shape[1])
+        f.setsampwidth(2)
+        f.setframerate(int(sample_rate))
+        f.writeframes((np.clip(audio, -1.0, 1.0) * 32767.0).astype("<i2")
+                      .tobytes())
 
 
 def load_wav(source: Union[str, np.ndarray], spec: Optional[Mapping] = None,

@@ -1,17 +1,21 @@
-"""Embedding extraction (port of ``make_eval_embed_fn`` from
-``training/train_step.py`` and of ``InferenceEngine`` from ``inference.py``).
+"""Embedding extraction and trial evaluation (port of ``make_eval_embed_fn``
+from ``training/train_step.py`` and of ``InferenceEngine``/``inference``
+from ``inference.py``).
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit device it raises. Weights come from a
 ``torch.save``d port ``state_dict`` (``weights.params_from_jax``
 converts a JAX tree into one); without a file the model gets random
-weights from the config's seed. Reading JAX msgpack checkpoints, EMA
-weights, checkpoint soups and int8 extraction are not ported yet.
+weights from the config's seed. ``quant: int8`` extracts through the
+int8 GEMMs of ``quant.py``, calibrated on the first batch. Of the
+inference verbs, ``--eval`` is ported; reading JAX msgpack checkpoints,
+EMA weights and checkpoint soups are not yet.
 """
 
 from __future__ import annotations
 
-import copy
+import csv
+import time
 from pathlib import Path
 from typing import Callable, Mapping, Optional
 
@@ -22,10 +26,26 @@ import torch.nn as nn
 from speakerverification_tpu_torch.builder import (
     compute_dtype_from_hparams,
     encoder_from_hparams,
+    eval_normalize_from_hparams,
 )
-from speakerverification_tpu_torch.weights import init_weights_
+from speakerverification_tpu_torch.evaluation.evaluator import (
+    evaluate_from_list,
+)
+from speakerverification_tpu_torch.evaluation.metrics import (
+    compute_error_rates,
+    compute_min_dcf,
+    tune_threshold_from_score,
+)
+from speakerverification_tpu_torch.evaluation.reports import dump_fa_fr_pairs
+from speakerverification_tpu_torch.ops import quant_matmul
+from speakerverification_tpu_torch.quant import (
+    calibrate_act_scales,
+    make_int8_embed_fn,
+)
+from speakerverification_tpu_torch.weights import cast_copy, init_weights_
 
-__all__ = ["InferenceEngine", "make_eval_embed_fn", "resolve_device"]
+__all__ = ["InferenceEngine", "inference", "make_eval_embed_fn",
+           "resolve_device", "run_dirs"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -37,6 +57,22 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def run_dirs(hparams: Mapping) -> dict:
+    """``save/<model>/<loss>/{model,result,config}``, created (own copy
+    of ``training/trainer.py``'s layout)."""
+    base = Path(hparams.get("save_folder", "save"))
+    model = hparams.get("model", {}).get("name", "model")
+    if isinstance(model, (list, tuple)):     # mixed multi-encoder config
+        model = "+".join(str(m) for m in model)
+    crit = hparams.get("criterion", {}).get("name", "loss")
+    root = base / str(model) / str(crit)
+    dirs = {"root": root, "model": root / "model", "result": root / "result",
+            "config": root / "config"}
+    for d in dirs.values():
+        d.mkdir(parents=True, exist_ok=True)
+    return dirs
+
+
 def make_eval_embed_fn(model: nn.Module, normalize: bool = True,
                        compute_dtype: Optional[torch.dtype] = None) -> Callable:
     """Build ``embed(wave [B, T]) -> [B, D]`` fp32 on the model's device.
@@ -45,12 +81,9 @@ def make_eval_embed_fn(model: nn.Module, normalize: bool = True,
     device. With ``compute_dtype`` the parameters (not the BatchNorm
     statistics) of a copy of the model are cast to it; the frontend
     stays fp32 either way. Embeddings are L2-normalized when
-    ``normalize``."""
+    ``normalize`` (the loss head's ``test_normalize``)."""
     if compute_dtype is not None:
-        model = copy.deepcopy(model)
-        for p in model.parameters():
-            if p.is_floating_point():
-                p.data = p.data.to(compute_dtype)
+        model = cast_copy(model, compute_dtype)
     model.eval()
     device = next(model.parameters()).device
 
@@ -72,8 +105,9 @@ class InferenceEngine:
                  device=None):
         self.hparams = dict(hparams)
         self.device = resolve_device(device)
-        if self.hparams.get("quant"):
-            raise NotImplementedError("int8 extraction is not ported yet")
+        quant = self.hparams.get("quant")
+        if quant not in (None, "int8"):
+            raise ValueError(f"unknown quant mode {quant!r} (expected 'int8')")
         self.model = encoder_from_hparams(self.hparams)
 
         cand = weights or self.hparams.get("initial_model_infer")
@@ -95,17 +129,125 @@ class InferenceEngine:
             raise ValueError(f"eval_transport must be float32|int16, "
                              f"got {transport!r}")
         self._transport = transport
-        self._embed = make_eval_embed_fn(
-            self.model, normalize=True,
-            compute_dtype=compute_dtype_from_hparams(self.hparams))
+        # the embed fn applies the head's test_normalize; scoring below
+        # must not normalize again
+        self._normalize = eval_normalize_from_hparams(self.hparams)
+        self._compute_dtype = compute_dtype_from_hparams(self.hparams)
+        self._float_embed = make_eval_embed_fn(
+            self.model, normalize=self._normalize,
+            compute_dtype=self._compute_dtype)
+        # int8: static activation scales, calibrated on the first batch
+        self.act_scales: Optional[dict] = None
+        self._embed = None if quant == "int8" else self._float_embed
 
-    def embed_fn(self, waves) -> torch.Tensor:
-        """``waves [B, T]`` (numpy float32 or int16) → ``[B, D]`` fp32
-        embeddings on the engine's device."""
-        if self._transport == "int16" and np.asarray(waves).dtype != np.int16:
+    def _wire(self, waves) -> np.ndarray:
+        waves = np.asarray(waves)
+        if self._transport == "int16" and waves.dtype != np.int16:
             # 16-bit PCM on the host→device wire: half the float32 bytes;
             # WAV-decoded crops sit on the 1/32768 grid, so it is lossless
             # for them
-            waves = np.clip(np.round(np.asarray(waves) * 32768.0),
+            waves = np.clip(np.round(waves * 32768.0),
                             -32768, 32767).astype(np.int16)
+        return waves
+
+    def _calibrate(self, waves: np.ndarray) -> None:
+        """Static int8 scales from an evenly spaced subsample of this
+        batch (eval lists are often speaker-ordered), then the int8
+        embed fn."""
+        flat = torch.as_tensor(waves).to(self.device)
+        flat = flat.reshape(-1, flat.shape[-1])
+        if flat.dtype == torch.int16:
+            flat = flat.float() * (1.0 / 32768.0)
+        n_calib = min(int(self.hparams.get("quant_calib_utts", 32)),
+                      flat.shape[0])
+        idx = np.linspace(0, flat.shape[0] - 1, n_calib).astype(int)
+        model = (self.model if self._compute_dtype is None
+                 else cast_copy(self.model, self._compute_dtype))
+        self.act_scales = calibrate_act_scales(
+            model, flat[torch.as_tensor(idx, device=self.device)])
+        self._embed = make_int8_embed_fn(
+            self.model, normalize=self._normalize,
+            compute_dtype=self._compute_dtype, act_scales=self.act_scales)
+        print(f"[INFO] int8: calibrated {len(self.act_scales)} activation "
+              f"scales on {n_calib} utterances (+10% headroom)")
+
+    def embed_fn(self, waves) -> torch.Tensor:
+        """``waves [B, T]`` (numpy float32 or int16) → ``[B, D]`` fp32
+        embeddings on the engine's device. An int8 engine calibrates on
+        its first call."""
+        waves = self._wire(waves)
+        if self._embed is None:
+            self._calibrate(waves)
         return self._embed(waves)
+
+    def warm_up(self, waves) -> None:
+        """Run ``waves`` through the float path and, on CUDA, build the
+        int8 kernel: kernels built and memory allocated before traffic.
+        An int8 engine does not calibrate here; a batch of silence would
+        set its scales."""
+        if self._embed is None and self.device.type == "cuda":
+            quant_matmul.build()
+        self._float_embed(self._wire(waves))
+
+    def evaluate(self, listfile: Optional[str] = None) -> dict:
+        """Score ``evaluation_file``: EER, AUC, minDCF and thresholds; writes
+        ``evaluation_results.csv``, the false-accept/false-reject pair
+        lists and a line of ``Inference_log.txt`` under the run's
+        ``result`` directory."""
+        h = self.hparams
+        listfile = listfile or h["evaluation_file"]
+        mode = h.get("scoring_mode", "cosine")
+        cohorts = (np.load(str(h["cohorts_path"]))
+                   if mode in ("norm", "zt_norm") else None)
+        t0 = time.time()
+        scores, labels, trials = evaluate_from_list(
+            self.embed_fn, listfile, h["audio_spec"],
+            num_eval=int(h.get("num_eval", 10)), scoring_mode=mode,
+            cohorts=cohorts, normalize=False,
+            batch_size=int(h.get("eval_batch_size", 32)),
+            num_workers=int(h.get("dataloader_options", {})
+                            .get("num_workers", 8)))
+        elapsed = time.time() - t0
+
+        res = tune_threshold_from_score(scores, labels, [1, 0.1])
+        fnrs, fprs, thresholds = compute_error_rates(scores, labels)
+        dcf = h.get("dcf", {}) or {}
+        mindcf, dcf_thr = compute_min_dcf(
+            fnrs, fprs, thresholds,
+            p_target=float(dcf.get("dcf_p_target", 0.05)),
+            c_miss=float(dcf.get("dcf_c_miss", 1)),
+            c_fa=float(dcf.get("dcf_c_fa", 1)))
+
+        result_dir = run_dirs(h)["result"]
+        with open(result_dir / "evaluation_results.csv", "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["label", "score", "trial"])
+            for s, l, t in zip(scores, labels, trials):
+                w.writerow([int(l), float(s), t])
+        fafr = dump_fa_fr_pairs(scores, labels, trials, res["roc"][3],
+                                result_dir)
+        report = {
+            "eer": res["roc"][1], "auc": res["roc"][2],
+            "threshold": res["roc"][3], "min_dcf": mindcf,
+            "dcf_threshold": dcf_thr, "gmean": res["gmean"][1],
+            "n_trials": len(scores), "seconds": elapsed, **fafr,
+        }
+        with open(result_dir / "Inference_log.txt", "a") as f:
+            f.write(f"{time.strftime('%Y-%m-%d %H:%M:%S')} eval {listfile} "
+                    f"-> EER {report['eer']:.4f}% minDCF {mindcf:.4f} "
+                    f"thr {report['threshold']:.4f} ({elapsed:.1f}s)\n")
+        print(f"[RESULT] EER {report['eer']:.4f}%  minDCF {mindcf:.4f}  "
+              f"AUC {report['auc']:.4f}  thr {report['threshold']:.4f}")
+        return report
+
+
+def inference(hparams: Mapping, eval_: bool = False, test: bool = False,
+              prepare: bool = False, predict=None, device=None) -> dict:
+    """CLI-facing dispatcher. Only ``eval_`` is ported; the other verbs
+    raise ``NotImplementedError``."""
+    for verb, asked in (("--test", test), ("--prepare", prepare),
+                        ("--predict", predict is not None)):
+        if asked:
+            raise NotImplementedError(f"{verb} is not ported yet")
+    engine = InferenceEngine(hparams, device=device)
+    return {"eval": engine.evaluate()} if eval_ else {}

@@ -34,7 +34,7 @@ import torch
 
 from speakerverification_tpu_torch.data.audio import AudioSpec, load_wav
 
-__all__ = ["DynamicBatcher", "serve", "make_serving_app"]
+__all__ = ["DynamicBatcher", "serve", "make_serving_app", "warm_up"]
 
 _NOT_PORTED = ("/identify", "/enroll", "/unenroll")
 
@@ -257,6 +257,17 @@ def make_serving_app(engine, hparams: Mapping,
     return ServingHandler, batcher
 
 
+def warm_up(engine, batcher: DynamicBatcher) -> None:
+    """Before traffic: one batch of silence at the serving shape and wire
+    format through the engine's float path builds the kernels and
+    allocates the buffers. An int8 engine calibrates on its first real
+    batch instead: scales calibrated on silence describe silence, and
+    speech would saturate them."""
+    dtype = np.int16 if batcher.transport == "int16" else np.float32
+    engine.warm_up(np.zeros((batcher.batch_utts * batcher.num_eval,
+                             batcher.samples), dtype))
+
+
 def serve(hparams: Mapping, host: str = "0.0.0.0", port: int = 8008,
           weights: Optional[str] = None, device=None) -> None:
     """Blocking server entry; runs on CUDA unless ``device`` says else."""
@@ -266,10 +277,7 @@ def serve(hparams: Mapping, host: str = "0.0.0.0", port: int = 8008,
 
     engine = InferenceEngine(hparams, weights=weights, device=device)
     handler, batcher = make_serving_app(engine, hparams)
-    # warm up before accepting traffic: one padded batch through the
-    # transport path builds the kernels and allocates the buffers
-    batcher.submit(np.zeros((batcher.num_eval, batcher.samples),
-                            np.float32)).result(timeout=1200)
+    warm_up(engine, batcher)
     httpd = ThreadingHTTPServer((host, port), handler)
     httpd.daemon_threads = False          # drain handlers on shutdown
     print(f"[INFO] serving {(hparams.get('model') or {}).get('name', '?')} "

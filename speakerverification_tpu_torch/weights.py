@@ -14,18 +14,23 @@ leaves change layout:
 
 :func:`init_weights_` gives a module random weights from a seeded
 generator (lecun-normal, as flax initializes), for a model served
-without a weights file.
+without a weights file. :func:`cast_copy` makes the low-precision copy
+an embed function runs, and :func:`act_scales_from_jax` carries the JAX
+package's int8 activation scales over.
 """
 
 from __future__ import annotations
 
 from typing import Mapping, Optional
 
+import copy
+
 import numpy as np
 import torch
 import torch.nn as nn
 
-__all__ = ["params_from_jax", "init_weights_"]
+__all__ = ["params_from_jax", "init_weights_", "cast_copy",
+           "act_scales_from_jax"]
 
 _SAME_NAME = {"alpha", "low_hz", "band_hz", "inorm_scale", "inorm_bias",
               "input_norm_scale", "input_norm_bias"}
@@ -112,3 +117,44 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             if m.bias is not None:
                 m.bias.zero_()
     return module
+
+
+def cast_copy(module: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:
+    """A deep copy of ``module`` whose floating parameters (not the
+    BatchNorm statistics, which are buffers) are cast to ``dtype``;
+    ``None`` keeps their dtype."""
+    module = copy.deepcopy(module)
+    if dtype is not None:
+        for p in module.parameters():
+            if p.is_floating_point():
+                p.data = p.data.to(dtype)
+    return module
+
+
+# ECAPA's attentive pooling with global context calls its attention conv
+# once on zeros only to bind the weights it then reads directly
+# (speakerverification_tpu/models/layers.py), so JAX calibration records
+# a max of 0.0 under this key; the port never calls that conv
+_DEAD_ASP_KEY = "AttentiveStatisticsPooling_0/TDNNBlock_0/Conv1d_0/Conv_0"
+
+
+def act_scales_from_jax(scales: Mapping[str, float], model: nn.Module,
+                        config=None) -> dict[str, float]:
+    """The JAX package's ``calibrate_act_scales`` result as the port's.
+
+    Keys stay the flax paths. The dead attention-conv key (value 0.0) is
+    dropped; any other key must name a module of ``model`` that
+    ``config`` (default ``QuantConfig()``) quantizes, or ``KeyError``."""
+    from speakerverification_tpu_torch.quant import QuantConfig, quantizable
+    cfg = config or QuantConfig()
+    known = {n.replace(".", "/") for n, m in model.named_modules()
+             if quantizable(m, cfg)}
+    out = {}
+    for key, value in scales.items():
+        if key.endswith(_DEAD_ASP_KEY) and float(value) == 0.0:
+            continue
+        if key not in known:
+            raise KeyError(f"int8 scale {key!r} names no quantizable module "
+                           "of the port")
+        out[key] = float(value)
+    return out

@@ -32,7 +32,11 @@ def test_port_imports_no_jax_and_no_jax_package():
                      "ops.res2net_cascade", "ops.sinc", "models.layers",
                      "models.ecapa_tdnn", "models.rawnet_blocks",
                      "models.rawnet3", "models.hybrids", "encoder", "builder",
-                     "inference", "weights", "data.audio", "serving"):
+                     "inference", "weights", "data.audio", "serving",
+                     "quant", "ops.quant_matmul", "data.loader",
+                     "evaluation.metrics", "evaluation.scoring",
+                     "evaluation.reports", "evaluation.evaluator",
+                     "cli.main"):
         assert f"speakerverification_tpu_torch.{expected}" in res["modules"]
     loaded = res["loaded"]
     for banned in ("jax", "flax", "optax"):

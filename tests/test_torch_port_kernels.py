@@ -8,7 +8,9 @@ The ``cuda``-marked tests need a card and nvcc and skip without them;
 the others check the wrappers' CPU contract here.
 
 Tolerances: fp32 kernels 1e-5 of the output's largest magnitude (fp32
-sums in another order). bf16 cascade: the largest error within 2 bf16
+sums in another order). The int8 GEMM (K3) must match its plain version
+bit for bit: its sums are exact integers and both round the epilogue's
+multiply and add separately. bf16 cascade: the largest error within 2 bf16
 ulps of max|ref| (a 1-ulp rounding flip passes, diluted, through the
 later groups), and the mean error within 1e-4 of the mean |ref|
 (reordering alone stays near 1e-5; a missing bf16 rounding of the
@@ -19,6 +21,7 @@ import pytest
 import torch
 
 from speakerverification_tpu_torch.ops import mel_frontend as mf
+from speakerverification_tpu_torch.ops import quant_matmul as qm
 from speakerverification_tpu_torch.ops import res2net_cascade as rc
 from speakerverification_tpu_torch.ops.frontend import (
     FrontendConfig,
@@ -122,7 +125,10 @@ def test_cpu_tensors_take_the_plain_versions():
     args = _cascade_inputs(16, 12, torch.float32, "cpu")
     torch.testing.assert_close(rc.res2net_cascade(*args, dilation=2),
                                rc.res2net_cascade_plain(*args, 2))
-    assert (mf.launches, rc.launches) == before
+    before_q = qm.launches
+    qargs = _quant_inputs((2, 40, 9), 24, torch.float32, "cpu")
+    assert torch.equal(qm.quant_matmul(*qargs), qm.quant_matmul_plain(*qargs))
+    assert (mf.launches, rc.launches, qm.launches) == before + (before_q,)
 
 
 @pytest.mark.parametrize("name", ["8k", "16k"])
@@ -150,3 +156,57 @@ def test_cascade_checks_shapes():
         rc.res2net_cascade(x[:, :-16], w, cb, s, sh, dilation=2)
     with pytest.raises(ValueError, match="too short"):
         rc.res2net_cascade(x[..., :6], w, cb, s, sh, dilation=3)
+
+
+def _quant_inputs(x_shape, n, dtype, device, seed=0):
+    """x, int8 weights [n, K], their scales, bias and a static act scale
+    a little under max|x|, so that some inputs saturate."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(*x_shape, generator=g)
+    w = torch.randn(n, x_shape[1], generator=g) / x_shape[1] ** 0.5
+    wq, s_w = qm.quantize_weight(w)
+    bias = 0.1 * torch.randn(n, generator=g)
+    act = 0.9 * x.abs().max().item()
+    return (x.to(dtype).to(device), wq.to(device), s_w.to(device),
+            bias.to(device), act)
+
+
+# channels-first conv columns [B, K, T] and Dense rows [M, K]: an
+# unaligned shape (K 96, N 50, ragged tiles everywhere), K not a
+# multiple of 16, the Raw3_ECAPA hot layer's widths and the widest K
+QUANT_SHAPES = [((3, 96, 70), 50), ((70, 96), 50), ((2, 100, 37), 130),
+                ((45, 72), 129), ((4, 1024, 300), 1024), ((33, 4608), 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_shape,n", QUANT_SHAPES)
+def test_quant_matmul_kernel_matches_plain_exactly(cuda, x_shape, n, dtype):
+    args = _quant_inputs(x_shape, n, dtype, cuda, seed=n)
+    before = qm.launches
+    got = qm.quant_matmul(*args)
+    torch.cuda.synchronize()
+    assert qm.launches == before + 1
+    ref = qm.quant_matmul_plain(*args)
+    assert got.dtype == dtype and got.shape == ref.shape
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_quant_matmul_kernel_rejects_what_it_cannot_take(cuda):
+    x, wq, s_w, b, act = _quant_inputs((2, 32, 20), 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        qm.quant_matmul(x.transpose(1, 2).contiguous().transpose(1, 2),
+                        wq, s_w, b, act)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        qm.quant_matmul(x.half(), wq, s_w, b, act)
+
+
+def test_quant_matmul_checks_shapes():
+    x, wq, s_w, b, act = _quant_inputs((2, 32, 20), 16, torch.float32, "cpu")
+    with pytest.raises(ValueError, match="do not match"):
+        qm.quant_matmul(x[:, :16], wq, s_w, b, act)
+    with pytest.raises(ValueError, match="int8"):
+        qm.quant_matmul(x, wq.float(), s_w, b, act)
+    with pytest.raises(ValueError, match=r"\[M, K\]"):
+        qm.quant_matmul(x[0, 0], wq, s_w, b, act)

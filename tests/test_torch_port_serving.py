@@ -3,8 +3,9 @@
 ``InferenceEngine(hparams, device="cpu")`` against JAX
 ``make_eval_embed_fn`` on the same weights (float32 and int16
 transport), the HTTP app's ``/embed`` and ``/score`` against the JAX
-embeddings, the CUDA default of the entry points, and the port's config
-reader against the JAX one.
+embeddings, the CUDA default of the entry points (engine, server, the
+``inference`` verb and the CLI), and the port's config reader against
+the JAX one.
 
 Tolerance: embeddings are L2-normalized; 1e-4 absolute per component
 (fp32 on both sides, ~20 layers of sums in different orders).
@@ -261,12 +262,25 @@ def test_batcher_int16_wire_errors_and_close():
         bb.close()
 
 
-def test_entry_points_default_to_cuda(monkeypatch):
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    from speakerverification_tpu_torch.cli.main import main as cli_main
+    from speakerverification_tpu_torch.inference import inference
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(_hparams())
     with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngine(_hparams(quant="int8"))
+    with pytest.raises(RuntimeError, match="CUDA"):
         tserving.make_serving_app(None, _hparams())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tserving.serve(_hparams(), port=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        inference(_hparams(evaluation_file="unused.txt"), eval_=True)
+    cfg = tmp_path / "config.yaml"
+    cfg.write_text(json.dumps(_hparams()))          # JSON is YAML
+    for verb in ("--do_infer --eval", "--do_serve"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli_main([*verb.split(), "--config", str(cfg), "--quant", "int8"])
 
 
 @pytest.mark.parametrize("name", ["raw3_ecapa.yaml", "ecapa_tdnn.yaml"])
