@@ -32,9 +32,10 @@ import subprocess
 import sys
 import time
 
-# H100 SXM published peaks (dense): fp32 outside the tensor cores, bf16
-# tensor cores, HBM3 bandwidth
+# H100 SXM published peaks (dense): fp32 outside the tensor cores, TF32
+# and bf16 tensor cores, int8, HBM3 bandwidth
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
@@ -162,13 +163,25 @@ def check_mel_kernel(dev, gen):
         two_k = cs.shape[1]
         K, n_mels = fb.shape
         F = got.shape[1]
-        # only the window's basis rows are nonzero, so the DFT needs
-        # win_length (not n_fft) multiply-adds per bin
-        win = rows_hi - rows_lo
-        flops = (2.0 * n_rows * F * (win * two_k + K * n_mels)
+        # only the window's basis rows are nonzero, and K1 folds the DFT
+        # about n_fft/2 (the window is symmetric about it): P = u @ Cf and
+        # Q = v @ Sf over win/2 + 1 rows, then the power and the mel product
+        c = cfg.n_fft // 2
+        depth = max(rows_hi - 1 - c, c - rows_lo) + 1
+        flops = (2.0 * n_rows * F * (2 * depth * K + K * n_mels)
                  + 3.0 * n_rows * F * K)
+        # the unfolded count over the window's rows, for comparison with
+        # the scalar kernel this one replaced
+        win = rows_hi - rows_lo
+        unfolded = (2.0 * n_rows * F * (win * two_k + K * n_mels)
+                    + 3.0 * n_rows * F * K)
         nbytes = 4.0 * (padded.numel() + cs.numel() + fb.numel() + got.numel())
-        b_ms, b_by = bound_ms(flops, nbytes, PEAK_FP32)
+        # K1 takes every product as three TF32 tensor-core products
+        # (3xTF32); the scalar kernel was held to the fp32 SIMT bound of
+        # the unfolded count
+        b_ms, b_by = bound_ms(3 * flops, nbytes, PEAK_TF32)
+        unfolded_ms, _ = bound_ms(3 * unfolded, nbytes, PEAK_TF32)
+        simt_ms, _ = bound_ms(unfolded, nbytes, PEAK_FP32)
         window = torch.hamming_window(cfg.win_length, periodic=True,
                                       device=dev)
 
@@ -189,12 +202,19 @@ def check_mel_kernel(dev, gen):
                 padded, cs, fb, cfg.hop_length, rows)),
             "library_ms": cuda_ms(library),
             "bound_ms": b_ms, "bound_by": b_by,
+            "unfolded_bound_ms": unfolded_ms,
+            "fp32_simt_bound_ms": simt_ms,
             "gflop": flops / 1e9,
         }
         log(f"[K1 {label}] kernel {res['ms']:.4f} ms  plain "
             f"{res['plain_ms']:.4f} ms  stft+matmul {res['library_ms']:.4f} ms "
-            f"(its max_abs_err vs plain {lib_err:.3e})  bound "
-            f"{b_ms:.4f} ms by {b_by}  {flops / 1e9:.2f} GFLOP")
+            f"(its max_abs_err vs plain {lib_err:.3e})  kernel/library "
+            f"{res['ms'] / res['library_ms']:.3f}")
+        log(f"[K1 {label}] bound {b_ms:.4f} ms by {b_by} (folded DFT, "
+            f"{flops / 1e9:.2f} GFLOP, 3xTF32 at 495 TFLOP/s; kernel at "
+            f"{b_ms / res['ms']:.1%} of it); unfolded {unfolded / 1e9:.2f} "
+            f"GFLOP: 3xTF32 bound {unfolded_ms:.4f} ms, fp32 SIMT bound "
+            f"{simt_ms:.4f} ms")
         results.append(res)
     return results
 

@@ -4,7 +4,13 @@ Port of ``speakerverification_tpu/ops/pallas_frontend.py``. As there,
 pre-emphasis and the reflect pad of ``n_fft/2`` run outside the kernel,
 in PyTorch. The kernel does the rest: the overlapped frame gather (the
 TPU kernel left that to an XLA gather), the windowed real DFT, the
-power spectrum and the mel projection, in fp32.
+power spectrum and the mel projection, at fp32 accuracy on the TF32
+tensor cores: every product is three TF32 products of operands split
+into ``hi + lo`` (:func:`tf32_split`). The DFT is folded about
+``n_fft/2`` (:func:`fold_basis`), which halves its depth. The folded
+basis and the mel bank are split once here and packed in the order the
+tensor-core instructions read them (:func:`pack_constants`,
+:func:`chunk_stream`).
 
 :func:`mel_frontend` launches the kernel for a CUDA tensor and runs
 :func:`mel_frontend_plain`, the same function in plain PyTorch, for a
@@ -17,6 +23,8 @@ import ctypes
 import threading
 
 import torch
+import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from speakerverification_tpu_torch.ops.frontend import (
     FrontendConfig,
@@ -35,18 +43,176 @@ _launches_lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "mel_frontend_launch": ([_P, _P, _P, _P] + [_I] * 9 + [_P], ctypes.c_int),
+    "mel_frontend_launch": ([_P, _P, _P, _P] + [_I] * 9 + [_P],
+                            ctypes.c_int),
     "mel_frontend_max_mels": ([], ctypes.c_int),
-    "mel_frontend_basis_chunk": ([], ctypes.c_int),
+    "mel_frontend_bins_per_block": ([], ctypes.c_int),
+    "mel_frontend_chunk_floats": ([], ctypes.c_int),
 }
+MMA_DEPTH = 8          # rows of one m16n8k8 step
+SPAN_SKEW = 4          # the kernel's SKEW: empty span slots per hop samples
 
 
-def _rows(cs: torch.Tensor, rows) -> tuple[int, int]:
-    n_fft = cs.shape[0]
+def _rows(n_fft: int, rows) -> tuple[int, int]:
     lo, hi = rows
     if not 0 <= lo < hi <= n_fft:
         raise ValueError(f"basis rows {rows} outside [0, {n_fft})")
     return lo, hi
+
+
+def fold_rows(n_fft: int, rows) -> tuple[int, int, int]:
+    """The kernel's geometry for the window rows ``[lo, hi)``: each frame's
+    span is its samples ``[lo, hi)``, folded about ``c = n_fft/2`` into
+    ``count`` rows ``d = 0 .. count-1`` (``x[c+d]`` with ``x[c-d]``), a
+    multiple of the mma depth. Returns ``(lo, hi - lo, count)``."""
+    lo, hi = _rows(n_fft, rows)
+    c = n_fft // 2
+    if not lo <= c < hi:
+        raise ValueError(f"window rows {rows} do not hold n_fft/2 = {c}")
+    d_max = max(hi - 1 - c, c - lo)
+    return lo, hi - lo, -(-(d_max + 1) // MMA_DEPTH) * MMA_DEPTH
+
+
+def fold_basis(cs: torch.Tensor, rows) -> tuple[torch.Tensor, ...]:
+    """The basis folded about ``c = n_fft/2``: for ``d >= 0``,
+    ``u_d = mp_d x[c+d] + mm_d x[c-d]`` times ``P[d]`` gives the cos
+    products and ``v_d = mp_d x[c+d] - mm_d x[c-d]`` times ``Q[d]`` the sin
+    products, up to the sign ``(-1)^k`` that the power drops. The masks
+    ``mp``, ``mm`` are 1 where that side lies in the window rows. Needs a
+    window symmetric about ``c`` (every centred window of the repo is).
+    Returns ``(P, Q, mp, mm)``, ``P, Q [count, K]``."""
+    n_fft, two_k = cs.shape
+    K = two_k // 2
+    lo, span, count = fold_rows(n_fft, rows)
+    hi, c = lo + span, n_fft // 2
+    d = torch.arange(count, device=cs.device)
+    plus, minus = c + d, c - d
+    mp = plus < hi
+    mm = (minus >= lo) & (d > 0)
+    cos, sin = cs[:, :K], cs[:, K:]
+    take_p, take_m = plus.clamp(max=n_fft - 1), minus.clamp(min=0)
+    both = (mp & mm)[:, None]
+    scale = cs.abs().max()
+    if ((cos[take_p] - cos[take_m]).abs() * both).max() > 1e-6 * scale or \
+            ((sin[take_p] + sin[take_m]).abs() * both).max() > 1e-6 * scale:
+        raise ValueError("the kernel folds the DFT about n_fft/2: the "
+                         "window must be symmetric about it")
+    zero = torch.zeros_like(cos[:1])
+    P = torch.where(mp[:, None], cos[take_p],
+                    torch.where(mm[:, None], cos[take_m], zero))
+    Q = torch.where(mp[:, None], sin[take_p],
+                    torch.where(mm[:, None], -sin[take_m], zero))
+    return P, Q, mp.float(), mm.float()
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x ~ hi + lo`` with both TF32: the operands of a 3xTF32 product."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def mma_fragments(b: torch.Tensor) -> torch.Tensor:
+    """``b [8 * KS, 8 * NT]`` as m16n8k8 B fragments ``[KS, NT, 32, 4]``:
+    lane ``4 g + t`` of k-step ``s``, n-tile ``j`` holds
+    ``{hi, hi, lo, lo}`` of ``b[8 s + t, 8 j + g]`` and
+    ``b[8 s + t + 4, 8 j + g]``."""
+    k, n = b.shape
+    v = b.reshape(k // 8, 2, 4, n // 8, 8).permute(0, 3, 4, 2, 1)
+    hi, lo = tf32_split(v.reshape(k // 8, n // 8, 32, 2))
+    return torch.cat([hi, lo], -1).contiguous()
+
+
+def pack_constants(cs: torch.Tensor, fb: torch.Tensor, rows,
+                   nb: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's constants, split into TF32 ``hi + lo``.
+
+    The folded basis (:func:`fold_basis`) of bins ``0 .. K-2``, in column
+    blocks of ``nb`` bins (zero-padded), as ``[ncb, nkc, chunk]``: per
+    block ``nkc`` chunks of 16 folded rows (zero-padded), each
+    ``[k-step 2][P, Q][hi, lo][tile]``, a tile the 8 rows x ``nb``
+    columns of one wgmma B operand: K-major core matrices of 8 columns x
+    4 rows (16 bytes a column), ``[column group][row half][column][row]``.
+
+    The mel bank as m16n8k8 B fragments ``[ncb * (nb / 8 + 1),
+    ceil(n_mels / 8), 32, 4]``: per column block its ``nb`` bins' rows,
+    then 8 rows led by the Nyquist bin ``K-1``'s in block 0, zero
+    elsewhere. (The Nyquist bin's P is summed apart, in fp32.)"""
+    n_fft = cs.shape[0]
+    K, n_mels = fb.shape
+    if n_fft != 2 * (K - 1):
+        raise ValueError(f"the kernel takes the Nyquist bin apart: needs "
+                         f"K = n_fft/2 + 1, got {K} bins at n_fft {n_fft}")
+    P, Q, _, _ = fold_basis(cs, rows)
+    count = P.shape[0]
+    nkc = -(-count // 16)
+    ncb = -(-(K - 1) // nb)
+    pad = ncb * nb - (K - 1)
+    basis = torch.stack([F.pad(m[:, :K - 1], (0, pad, 0, 16 * nkc - count))
+                         for m in (P, Q)], 1)
+    # rows (chunk, k-step, half, row), columns (block, group, column)
+    basis = basis.reshape(nkc, 2, 2, 4, 2, ncb, nb // 8, 8)
+    basis = basis.permute(5, 0, 1, 4, 6, 2, 7, 3)
+    tiles = torch.stack(tf32_split(basis.contiguous()), 4)
+    mels = F.pad(fb[:K - 1], (0, -n_mels % 8, 0, pad)).reshape(ncb, nb, -1)
+    nyquist = torch.zeros_like(mels[:, :8])
+    nyquist[0, 0, :n_mels] = fb[K - 1]
+    mels = torch.cat([mels, nyquist], 1).reshape(ncb * (nb + 8), -1)
+    return tiles.reshape(ncb, nkc, -1).contiguous(), mma_fragments(mels)
+
+
+def fold_table(cs: torch.Tensor, rows, hop: int) -> torch.Tensor:
+    """Per folded row ``d``: the span columns of ``x[c+d]`` and ``x[c-d]``
+    (relative to a row's first sample ``lo``, with ``SPAN_SKEW`` empty
+    slots after every ``hop`` samples, as the kernel stores the span; a
+    masked side points at ``x[c]``), the masks
+    ``mp``, ``mm``, and the Nyquist bin's folded basis value:
+    ``[count, 5]`` fp32."""
+    n_fft = cs.shape[0]
+    lo, _, count = fold_rows(n_fft, rows)
+    P, _, mp, mm = fold_basis(cs, rows)
+    c = n_fft // 2
+    d = torch.arange(count, device=cs.device)
+    plus = torch.where(mp > 0, c + d, c) - lo
+    minus = torch.where(mm > 0, c - d, c) - lo
+    col = lambda i: (i + SPAN_SKEW * (i // hop)).float()  # noqa: E731
+    return torch.stack([col(plus), col(minus), mp, mm, P[:, -1]], 1) \
+        .contiguous()
+
+
+def chunk_stream(basis: torch.Tensor, mfrag: torch.Tensor) -> torch.Tensor:
+    """The kernel's one stream of constant chunks ``[ncb, nkc + nmc,
+    chunk]``: per column block its basis chunks, then its rows of the mel
+    bank cut into chunks of the same size (``kpm`` whole k-steps each,
+    zero-padded)."""
+    ncb, _, chunk = basis.shape
+    steps, nmt = mfrag.shape[0] // ncb, mfrag.shape[1]
+    kpm = chunk // (nmt * 32 * 4)
+    nmc = -(-steps // kpm)
+    mels = F.pad(mfrag.reshape(ncb, steps, -1), (0, 0, 0, nmc * kpm - steps))
+    mels = F.pad(mels.reshape(ncb, nmc, -1), (0, chunk - kpm * nmt * 128))
+    return torch.cat([basis, mels], 1).contiguous()
+
+
+# per basis tensor (an entry lives as long as it does): the mel bank and
+# the geometry it was packed for, the constant chunks and the fold table
+_packed = WeakIdKeyDictionary()
+
+
+def _constants(cs, fb, rows, nb, hop):
+    key = (tuple(rows), nb, hop)
+    hit = _packed.get(cs)
+    if hit is None or hit[0] is not fb or hit[1] != key:
+        hit = _packed[cs] = (fb, key,
+                             chunk_stream(*pack_constants(cs, fb, rows, nb)),
+                             fold_table(cs, rows, hop))
+    return hit[2:]
 
 
 def mel_frontend_plain(padded: torch.Tensor, cs: torch.Tensor,
@@ -58,7 +224,7 @@ def mel_frontend_plain(padded: torch.Tensor, cs: torch.Tensor,
     window's, :func:`~speakerverification_tpu_torch.ops.frontend.window_rows`);
     the product skips the others."""
     n_fft, two_k = cs.shape
-    lo, hi = _rows(cs, rows)
+    lo, hi = _rows(n_fft, rows)
     frames = padded.unfold(-1, n_fft, hop)[..., lo:hi]    # [B, F, hi - lo]
     proj = frames @ cs[lo:hi]                             # [B, F, 2K]
     re, im = proj[..., :two_k // 2], proj[..., two_k // 2:]
@@ -77,11 +243,7 @@ def _launch(padded: torch.Tensor, cs: torch.Tensor, fb: torch.Tensor,
         raise ValueError(f"basis has {two_k} columns, expected 2*{K}")
     if n_mels > lib.mel_frontend_max_mels():
         raise ValueError(f"n_mels {n_mels} > {lib.mel_frontend_max_mels()}")
-    kc = lib.mel_frontend_basis_chunk()
-    if n_fft % kc:
-        raise ValueError(f"n_fft {n_fft} must be a multiple of {kc}")
-    lo, hi = _rows(cs, rows)
-    lo, hi = lo // kc * kc, -(-hi // kc) * kc             # whole chunks
+    lo, span, count = fold_rows(n_fft, rows)
     if Tp < n_fft:
         raise ValueError(f"padded wave of {Tp} samples < n_fft {n_fft}")
     for name, t in (("wave", padded), ("basis", cs), ("mel bank", fb)):
@@ -89,13 +251,19 @@ def _launch(padded: torch.Tensor, cs: torch.Tensor, fb: torch.Tensor,
                 or t.device != padded.device:
             raise ValueError(f"{name} must be contiguous float32 on "
                              f"{padded.device}")
-    F = 1 + (Tp - n_fft) // hop
-    out = torch.empty((B, F, n_mels), dtype=torch.float32,
+    chunks, fold = _constants(cs, fb, rows, lib.mel_frontend_bins_per_block(),
+                              hop)
+    if chunks.shape[-1] != lib.mel_frontend_chunk_floats():
+        raise ValueError(f"chunks of {chunks.shape[-1]} floats, the kernel "
+                         f"takes {lib.mel_frontend_chunk_floats()}")
+    F_ = 1 + (Tp - n_fft) // hop
+    out = torch.empty((B, F_, n_mels), dtype=torch.float32,
                       device=padded.device)
     stream = torch.cuda.current_stream(padded.device).cuda_stream
     err = lib.mel_frontend_launch(
-        padded.data_ptr(), cs.data_ptr(), fb.data_ptr(), out.data_ptr(),
-        B, Tp, n_fft, lo, hi, hop, K, F, n_mels, stream)
+        padded.data_ptr(), chunks.data_ptr(), fold.data_ptr(), out.data_ptr(),
+        B, Tp, lo, span, count, hop, F_, n_mels, chunks.shape[0],
+        stream)
     if err != 0:
         raise RuntimeError(f"mel_frontend kernel launch failed: "
                            f"cudaError {err}")
@@ -110,7 +278,14 @@ def mel_frontend(padded: torch.Tensor, cs: torch.Tensor, fb: torch.Tensor,
 
     ``rows = (lo, hi)``: the basis rows that may be nonzero; the others
     must be zero. CUDA tensors run the hand-written kernel; CPU tensors
-    the plain version. There is no fallback between the two."""
+    the plain version. There is no fallback between the two.
+
+    The kernel folds the DFT about ``n_fft/2``, so on a CUDA tensor it
+    takes only a window symmetric about ``n_fft/2`` and ``K = n_fft/2 + 1``
+    bins, and raises ``ValueError`` on anything else. Every even
+    ``win_length`` centred in the frame is symmetric; an odd one (441 at
+    22.05 kHz with a 20 ms window) is symmetric about ``n_fft/2 - 1/2``
+    and is refused. The plain version on a CPU tensor takes any basis."""
     if padded.is_cuda:
         return _launch(padded, cs, fb, hop, rows)
     if padded.device.type == "cpu":

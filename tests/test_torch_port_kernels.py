@@ -17,6 +17,8 @@ later groups), and the mean error within 1e-4 of the mean |ref|
 inter-group add gives 2e-3).
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -69,23 +71,50 @@ def _cascade_inputs(hidden, T, dtype, device, seed=0):
     return [v.to(device) for v in (x, w, cb, s, sh)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name,samples", [("8k", 8000), ("16k", 16000),
-                                          ("8k", 5127)])
-def test_mel_kernel_matches_plain(cuda, name, samples):
-    cfg = CONFIGS[name]
-    g = torch.Generator().manual_seed(samples)
-    wave = (0.3 * torch.randn(5, samples, generator=g)).to(cuda)
+# (config, utterances, samples, n_mels): the kernel tiles the flattened
+# [B * F] frame rows by 64, so a tile may hold the end of one utterance
+# and the start of the next, or several whole ones
+MEL_CASES = [
+    ("8k", 5, 8000, 80),      # F 101: a boundary inside a tile
+    ("16k", 5, 16000, 80),
+    ("8k", 5, 5127, 80),      # samples not a multiple of the hop
+    ("8k", 1, 3000, 80),      # F 38: fewer rows than one tile
+    ("8k", 7, 720, 80),       # F 10: seven utterances in one tile
+    ("16k", 3, 1600, 80),     # F 11 at hop 160
+    ("8k", 160, 16000, 80),   # the serving batch: 32,160 rows
+    ("8k", 5, 8000, 40),      # other mel counts the wrapper takes
+    ("16k", 5, 8000, 128),
+]
+
+
+def _mel_inputs(name, n, samples, n_mels, device):
+    cfg = dataclasses.replace(CONFIGS[name], n_mels=n_mels)
+    g = torch.Generator().manual_seed(samples + n)
+    wave = (0.3 * torch.randn(n, samples, generator=g)).to(device)
     padded = reflect_pad(pre_emphasis(wave), cfg.n_fft // 2).contiguous()
-    cs, fb = mel_constants(cfg, cuda)
+    cs, fb = mel_constants(cfg, device)
+    return cfg, padded, cs, fb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n,samples,n_mels", MEL_CASES)
+def test_mel_kernel_matches_plain(cuda, name, n, samples, n_mels):
+    cfg, padded, cs, fb = _mel_inputs(name, n, samples, n_mels, cuda)
     before = mf.launches
     got = mf.mel_frontend(padded, cs, fb, cfg.hop_length, window_rows(cfg))
     torch.cuda.synchronize()
     assert mf.launches == before + 1
     ref = mf.mel_frontend_plain(padded, cs, fb, cfg.hop_length,
                                 (0, cfg.n_fft))
-    assert torch.isfinite(got).all()
+    assert got.shape == ref.shape and torch.isfinite(got).all()
     assert _rel_err(got, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_mel_kernel_rejects_too_many_mels(cuda):
+    cfg, padded, cs, fb = _mel_inputs("8k", 2, 2000, 136, cuda)
+    with pytest.raises(ValueError, match="n_mels"):
+        mf.mel_frontend(padded, cs, fb, cfg.hop_length, window_rows(cfg))
 
 
 @pytest.mark.cuda
