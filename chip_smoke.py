@@ -238,7 +238,9 @@ def bf16_close(diff, ref):
 
 def check_cascade_kernel(dev, gen):
     """K2 against its plain version: H 64 (Raw3_ECAPA's ECAPA branch,
-    160 crops) and 128 (ECAPA_TDNN, 80 crops), d 2/3/4, fp32 and bf16."""
+    160 crops) and 128 (ECAPA_TDNN, 80 crops), d 2/3/4, fp32 and bf16;
+    timed at d 2, and at d 4 for H 128 fp32, where the halo's recompute
+    is largest; at path B's shape also with 2 to 5 tiles per crop."""
     import torch
     import torch.nn.functional as F
     from speakerverification_tpu_torch.ops import res2net_cascade as rc
@@ -278,14 +280,37 @@ def check_cascade_kernel(dev, gen):
                 if not ok:
                     fail(f"cascade kernel disagrees with its plain version "
                          f"({tag})")
-                if d != 2:
+                if d != 2 and not (hidden == 128 and d == 4
+                                   and dtype == torch.float32):
                     continue
                 item = x.element_size()
                 flops = 2.0 * B * T * hidden * hidden * 3 * (groups - 1)
                 nbytes = (2.0 * B * C * T * item + 4.0 * w.numel()
                           + 3 * 4.0 * cb.numel())
-                peak = PEAK_FP32 if dtype == torch.float32 else PEAK_BF16
-                b_ms, b_by = bound_ms(flops, nbytes, peak)
+                # fp32 takes every product as three TF32 tensor-core
+                # products (3xTF32), bf16 one bf16 product; PR 1's scalar
+                # kernel was held to the fp32 SIMT bound
+                if dtype == torch.float32:
+                    b_ms, b_by = bound_ms(3 * flops, nbytes, PEAK_TF32)
+                else:
+                    b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16)
+                simt_ms, _ = bound_ms(flops, nbytes, PEAK_FP32)
+                # the launch's configuration, from the wrapper's schedule
+                # (not measured): blocks, shared memory (two weight chunks
+                # and the input buffer), the halo's recompute, and an
+                # estimate of the weight bytes read from L2 if every block
+                # streams every group's packed weights
+                table, stride = rc.tile_schedule(
+                    B, T, groups, d,
+                    torch.cuda.get_device_properties(dev).multi_processor_count)
+                w_item = 8 if dtype == torch.float32 else 2   # hi + lo / bf16
+                smem = (2 * rc.CHUNK_CHANNELS * hidden * w_item
+                        + hidden * stride * (4 if dtype == torch.float32
+                                             else 2))
+                rows = sum(hi - lo for r in table.tolist()
+                           for lo, hi in zip(r[3::2], r[4::2]))
+                recompute = rows / (B * T * (groups - 1))
+                w_gb = table.shape[0] * w.numel() * w_item / 1e9
                 wt = w.to(dtype).permute(0, 3, 2, 1).contiguous()
                 cbt = cb.to(dtype)
 
@@ -310,14 +335,45 @@ def check_cascade_kernel(dev, gen):
                         x, w, cb, s, sh, d)),
                     "library_ms": cuda_ms(library),
                     "bound_ms": b_ms, "bound_by": b_by,
+                    "fp32_simt_bound_ms": simt_ms,
                     "gflop": flops / 1e9,
                 }
                 log(f"[K2 {tag}] kernel {res['ms']:.4f} ms  plain "
                     f"{res['plain_ms']:.4f} ms  conv1d chain "
-                    f"{res['library_ms']:.4f} ms  bound {b_ms:.4f} ms by "
-                    f"{b_by}  {flops / 1e9:.2f} GFLOP")
+                    f"{res['library_ms']:.4f} ms  kernel/library "
+                    f"{res['ms'] / res['library_ms']:.3f}")
+                log(f"[K2 {tag}] bound {b_ms:.4f} ms by {b_by} "
+                    f"({flops / 1e9:.2f} GFLOP, "
+                    f"{'3xTF32 at 495' if dtype == torch.float32 else 'bf16 at 989'}"
+                    f" TFLOP/s; kernel at {b_ms / res['ms']:.1%} of it); fp32 "
+                    f"SIMT bound {simt_ms:.4f} ms; {table.shape[0]} blocks of "
+                    f"{smem} B shared memory (stride {stride}), halo "
+                    f"recompute {recompute:.3f}x, about {w_gb:.3f} GB of "
+                    f"weights from L2 (schedule estimate)")
                 results.append(res)
+                if (hidden, d, dtype) == (128, 2, torch.float32):
+                    time_tile_counts(rc, (x, w, cb, s, sh), d, tag,
+                                     table.shape[0] // B)
     return results
+
+
+def time_tile_counts(rc, args, d: int, tag: str, picked: int) -> None:
+    """K2 at path B's shape with the time tiles per crop forced to 2..5,
+    beside the count the wrapper's schedule picks: the measurement behind
+    ``tile_count``'s choice."""
+    tile_count, times = rc.tile_count, {}
+    try:
+        for n in (2, 3, 4, 5):
+            rc.tile_count = lambda *_, n=n: n
+            rc._schedule.cache_clear()
+            times[n] = cuda_ms(lambda: rc.res2net_cascade(*args, dilation=d),
+                               iters=50)
+    finally:
+        rc.tile_count = tile_count
+        rc._schedule.cache_clear()
+    log(f"[K2 {tag} tiles] ms by tiles per crop: "
+        + ", ".join(f"{n}: {t:.4f}" for n, t in times.items())
+        + f"; the schedule picks {picked}")
 
 
 def fmt_ms(v) -> str:

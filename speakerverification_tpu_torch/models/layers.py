@@ -19,7 +19,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from speakerverification_tpu_torch.ops.frontend import use_kernel
-from speakerverification_tpu_torch.ops.res2net_cascade import res2net_cascade
+from speakerverification_tpu_torch.ops.res2net_cascade import (
+    res2net_cascade,
+    state_version,
+)
 
 __all__ = [
     "gelu_exact",
@@ -126,6 +129,7 @@ class Res2NetBlock(nn.Module):
         self.features, self.scale = features, scale
         self.kernel_size, self.dilation, self.backend = kernel_size, dilation, backend
         hidden = features // scale
+        self._folded = None   # (state key, folded weights): see folded()
         for j in range(scale - 1):
             self.add_module(f"TDNNBlock_{j}", TDNNBlock(
                 hidden, hidden, kernel_size, dilation, activation=torch.relu))
@@ -140,18 +144,32 @@ class Res2NetBlock(nn.Module):
 
     def folded(self):
         """Stacked cascade weights ``[s-1, 3, H, H]`` (tap, in, out), conv
-        bias and the eval BatchNorm folded to scale and shift."""
-        ws, cbs, ss, bs = [], [], [], []
-        for blk in self.blocks():
-            conv = blk.Conv1d_0.Conv_0
-            bn = blk.BatchNorm1d_0.BatchNorm_0
-            s = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
-            ws.append(conv.weight.permute(2, 1, 0))
-            cbs.append(conv.bias.float())
-            ss.append(s)
-            bs.append(bn.bias.float() - bn.running_mean.float() * s)
-        return (torch.stack(ws), torch.stack(cbs), torch.stack(ss),
-                torch.stack(bs))
+        bias and the eval BatchNorm folded to scale and shift.
+
+        Kept until a parameter or buffer changes storage, dtype or
+        version (``load_state_dict``, ``.to()``, a training step, an
+        in-place edit), so the kernel's wrapper finds the same weights
+        tensor, and its packed weights, on every eval forward. A write
+        through ``.data`` bumps no version and is not seen."""
+        key = tuple((p.data_ptr(), state_version(p), p.dtype)
+                    for p in (*self.parameters(), *self.buffers()))
+        if self._folded is None or self._folded[0] != key:
+            ws, cbs, ss, bs = [], [], [], []
+            # plain tensors even under inference mode, so that they carry
+            # the version counter the wrapper's packed weights key on
+            with torch.inference_mode(False), torch.no_grad():
+                for blk in self.blocks():
+                    conv = blk.Conv1d_0.Conv_0
+                    bn = blk.BatchNorm1d_0.BatchNorm_0
+                    s = bn.weight.float() * torch.rsqrt(
+                        bn.running_var.float() + bn.eps)
+                    ws.append(conv.weight.permute(2, 1, 0))
+                    cbs.append(conv.bias.float())
+                    ss.append(s)
+                    bs.append(bn.bias.float() - bn.running_mean.float() * s)
+                self._folded = (key, (torch.stack(ws), torch.stack(cbs),
+                                      torch.stack(ss), torch.stack(bs)))
+        return self._folded[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self._use_fused(x):

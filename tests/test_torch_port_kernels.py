@@ -61,9 +61,9 @@ def _bf16_close(got, ref):
                 and diff.mean() <= 1e-4 * ref.abs().mean())
 
 
-def _cascade_inputs(hidden, T, dtype, device, seed=0):
+def _cascade_inputs(hidden, T, dtype, device, seed=0, B=3):
     g = torch.Generator().manual_seed(seed)
-    x = torch.randn(3, 8 * hidden, T, generator=g).to(dtype)
+    x = torch.randn(B, 8 * hidden, T, generator=g).to(dtype)
     w = torch.randn(7, 3, hidden, hidden, generator=g) / (3 * hidden) ** 0.5
     cb = 0.1 * torch.randn(7, hidden, generator=g)
     s = 0.5 + torch.rand(7, hidden, generator=g)
@@ -133,6 +133,41 @@ def test_cascade_kernel_matches_plain(cuda, hidden, dilation, dtype):
         assert _rel_err(got, ref) <= 1e-5
     else:
         assert _bf16_close(got, ref)
+
+
+# (batch rows, crop) at the edges of the kernel's time tiles: the
+# shortest crop (2d + 1), one window of MAX_COLS rows and one row either
+# side of it (one tile, then two), path B's serving batch, a long crop,
+# a single batch row
+CASCADE_EDGES = [(3, "2d+1"), (3, rc.MAX_COLS - 1), (3, rc.MAX_COLS),
+                 (3, rc.MAX_COLS + 1), (80, 201), (2, 1001), (1, 201)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dilation", [2, 3, 4])
+@pytest.mark.parametrize("hidden", [64, 128])
+@pytest.mark.parametrize("B,T", CASCADE_EDGES)
+def test_cascade_kernel_tile_edges(cuda, B, T, hidden, dilation, dtype):
+    T = 2 * dilation + 1 if T == "2d+1" else T
+    x, w, cb, s, sh = _cascade_inputs(hidden, T, dtype, cuda, seed=T, B=B)
+    before = rc.launches
+    got = rc.res2net_cascade(x, w, cb, s, sh, dilation=dilation)
+    torch.cuda.synchronize()
+    assert rc.launches == before + 1
+    ref = rc.res2net_cascade_plain(x, w, cb, s, sh, dilation)
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    if dtype == torch.float32:
+        assert _rel_err(got, ref) <= 1e-5
+    else:
+        assert _bf16_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_cascade_kernel_rejects_a_halo_wider_than_its_window(cuda):
+    x, w, cb, s, sh = _cascade_inputs(64, 300, torch.float32, cuda)
+    with pytest.raises(ValueError, match="too wide"):
+        rc.res2net_cascade(x, w, cb, s, sh, dilation=11)
 
 
 @pytest.mark.cuda
