@@ -27,6 +27,7 @@ a CPU test checks). The last line of standard output is the JSON result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -119,7 +120,7 @@ def build_kernels():
     for name in KERNELS:
         text = (_build.BUILD_DIR / f"{name}.log").read_text()
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "warning")):
                 log(f"[ptxas {name}] {line.strip()}")
 
 
@@ -380,76 +381,185 @@ def fmt_ms(v) -> str:
     return "n/a" if v is None else f"{v:.4f} ms"
 
 
+# K3's shapes on path C (Raw3_ECAPA + --quant int8, 160 crops per
+# forward): x as the wrapper gets it, N, launches per forward, the layer.
+# Path C's forward pre-hooks log the shapes it really launches beside
+# this table. The last line is an unaligned shape, not on the path.
+QUANT_SHAPES = [
+    ((160, 1024, 1575), 1024, 1, "Bottle2neckRaw_0 last 1x1"),
+    ((160, 1024, 315), 1024, 2, "Bottle2neckRaw_1 first/last 1x1"),
+    ((160, 1024, 105), 1024, 2, "Bottle2neckRaw_2 first/last 1x1"),
+    ((160, 3072, 105), 1536, 1, "RawNet3 Conv_0"),
+    ((160, 4608, 105), 128, 1, "RawNet3 Conv_1 (attention)"),
+    ((160, 512, 201), 512, 6, "ECAPA SE-Res2Net first/last TDNN"),
+    ((160, 512, 1), 128, 3, "ECAPA SE first conv"),
+    ((160, 1536, 201), 1536, 1, "ECAPA TDNNBlock_1 (MFA)"),
+    ((160, 1024), 1024, 3, "AFMS Dense"),
+    ((160, 3072), 320, 1, "RawNet3 Dense_0"),
+    ((160, 3072), 192, 1, "ECAPA Dense_0"),
+    ((70, 96), 50, 0, "unaligned Dense"),
+]
+HOT_QUANT = "conv 160x1024x1575 N1024 float32"
+
+
+def quant_label(x_shape, N, dtype) -> str:
+    kind = "conv" if len(x_shape) == 3 else "dense"
+    return (f"{kind} {'x'.join(map(str, x_shape))} N{N} "
+            f"{str(dtype).split('.')[-1]}")
+
+
 def check_quant_kernel(dev, gen):
-    """K3 against its plain version, bit for bit: Raw3_ECAPA's hot layer
-    (a 1x1 1024 -> 1024 conv at 1,575 frames, 160 crops) in fp32 and
-    bf16, its final Dense (160 x 3072 -> 320), and an unaligned shape."""
+    """K3 against its plain version, bit for bit, at every shape of
+    ``QUANT_SHAPES`` in fp32 and bf16, each timed beside its plain
+    version, the ``torch._int_mm`` chain, the float layer (``F.conv1d``
+    or ``F.linear`` in x's dtype, TF32 off), a ``copy_`` that moves x's
+    and out's bytes (the card's practical bytes floor) and the bound."""
+    import torch
+    return [check_quant_shape(dev, gen, x_shape, N, dtype, per_fwd, layer)
+            for x_shape, N, per_fwd, layer in QUANT_SHAPES
+            for dtype in (torch.float32, torch.bfloat16)]
+
+
+def check_quant_shape(dev, gen, x_shape, N, dtype, per_fwd, layer):
     import torch
     import torch.nn.functional as F
     from speakerverification_tpu_torch.ops import quant_matmul as qm
-    results = []
-    shapes = [("hot conv fp32", (160, 1024, 1575), 1024, torch.float32),
-              ("hot conv bf16", (160, 1024, 1575), 1024, torch.bfloat16),
-              ("dense fp32", (160, 3072), 320, torch.float32),
-              ("unaligned dense fp32", (70, 96), 50, torch.float32)]
-    for label, x_shape, N, dtype in shapes:
-        K = x_shape[1]
-        x = torch.randn(*x_shape, generator=gen, device=dev).to(dtype)
-        w = torch.randn(N, K, generator=gen, device=dev) / K ** 0.5
-        bias = 0.1 * torch.randn(N, generator=gen, device=dev)
-        wq, s_w = qm.quantize_weight(w)
-        act = 0.9 * x.float().abs().max().item()     # a few inputs saturate
-        got = qm.quant_matmul(x, wq, s_w, bias, act)
-        ref = qm.quant_matmul_plain(x, wq, s_w, bias, act)
-        torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
-        ok = (bool(torch.equal(got, ref))
-              and bool(torch.isfinite(got.float()).all()))
-        log(f"[K3 {label}] out {tuple(got.shape)} {str(dtype)[6:]} "
-            f"max_abs_err {err:.3e} (bit-exact required) "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"int8 GEMM kernel disagrees with its plain version ({label})")
+    label = quant_label(x_shape, N, dtype)
+    K = x_shape[1]
+    x = torch.randn(*x_shape, generator=gen, device=dev).to(dtype)
+    w = torch.randn(N, K, generator=gen, device=dev) / K ** 0.5
+    bias = 0.1 * torch.randn(N, generator=gen, device=dev)
+    wq, s_w = qm.quantize_weight(w)
+    act = 0.9 * x.float().abs().max().item()     # a few inputs saturate
+    got = qm.quant_matmul(x, wq, s_w, bias, act)
+    ref = qm.quant_matmul_plain(x, wq, s_w, bias, act)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    ok = (bool(torch.equal(got, ref))
+          and bool(torch.isfinite(got.float()).all()))
+    log(f"[K3 {label}] {layer}, {per_fwd} per forward: out "
+        f"{tuple(got.shape)} max_abs_err {err:.3e} (bit-exact required) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"int8 GEMM kernel disagrees with its plain version ({label})")
 
-        conv = len(x_shape) == 3
-        M = x_shape[0] * x_shape[2] if conv else x_shape[0]
-        item = x.element_size()
-        flops = 2.0 * M * K * N
-        nbytes = M * K * item + K * N + M * N * item
-        b_ms, b_by = bound_ms(flops, nbytes, PEAK_INT8)
-        s_x, inv_sx = qm.act_scales(act)
-        scale = s_w * float(s_x)
-        wq_t = wq.T.contiguous()
+    conv = len(x_shape) == 3
+    M = x_shape[0] * x_shape[2] if conv else x_shape[0]
+    item = x.element_size()
+    flops = 2.0 * M * K * N
+    nbytes = M * K * item + K * N + M * N * item
+    b_ms, b_by = bound_ms(flops, nbytes, PEAK_INT8)
+    s_x, inv_sx = qm.act_scales(act)
+    scale = s_w * float(s_x)
+    wq_t = wq.T.contiguous()
 
-        def library():
-            rows = x.transpose(1, 2).reshape(-1, K) if conv else x
-            xq = torch.clamp(torch.round(rows.float() * inv_sx), -127,
-                             127).to(torch.int8)
-            out = (torch._int_mm(xq, wq_t).float() * scale + bias).to(dtype)
-            return (out.reshape(x_shape[0], x_shape[2], N).transpose(1, 2)
-                    .contiguous() if conv else out)
+    def library():
+        rows = x.transpose(1, 2).reshape(-1, K) if conv else x
+        xq = torch.clamp(torch.round(rows.float() * inv_sx), -127,
+                         127).to(torch.int8)
+        out = (torch._int_mm(xq, wq_t).float() * scale + bias).to(dtype)
+        return (out.reshape(x_shape[0], x_shape[2], N).transpose(1, 2)
+                .contiguous() if conv else out)
 
-        # torch._int_mm takes M > 16 and K, N multiples of 8
-        lib_ok = M > 16 and K % 8 == 0 and N % 8 == 0
-        res = {
-            "name": "quant_matmul", "shape": label, "max_abs_err": err,
-            "ms": cuda_ms(lambda: qm.quant_matmul(x, wq, s_w, bias, act)),
-            "plain_ms": cuda_ms(lambda: qm.quant_matmul_plain(
-                x, wq, s_w, bias, act), iters=5, warmup=1),
-            "library_ms": cuda_ms(library) if lib_ok else None,
-            "bound_ms": b_ms, "bound_by": b_by, "gop": flops / 1e9,
-        }
-        float_ms = None
+    wf, bf = w.to(dtype), bias.to(dtype)
+
+    def float_layer():
         if conv:
-            wf = w[:, :, None].to(dtype)
-            float_ms = cuda_ms(lambda: F.conv1d(x, wf, bias.to(dtype)))
-        log(f"[K3 {label}] kernel {res['ms']:.4f} ms  plain "
-            f"{res['plain_ms']:.4f} ms  _int_mm chain "
-            f"{fmt_ms(res['library_ms'])}  float conv1d "
-            f"{fmt_ms(float_ms)}  bound {b_ms:.4f} ms by {b_by}  "
-            f"{flops / 1e9:.1f} GOP {nbytes / 1e9:.3f} GB")
-        results.append(res)
-    return results
+            return F.conv1d(x, wf[:, :, None], bf)
+        return F.linear(x, wf, bf)
+
+    # a copy that reads and writes x's and out's bytes between them
+    floor_src = torch.empty((x.nbytes + got.nbytes) // 8, dtype=torch.float32,
+                            device=dev)
+    floor_dst = torch.empty_like(floor_src)
+    # torch._int_mm takes M > 16 and K, N multiples of 8
+    lib_ok = M > 16 and K % 8 == 0 and N % 8 == 0
+    heavy = nbytes > 2e8
+    res = {
+        "name": "quant_matmul", "shape": label, "max_abs_err": err,
+        "ms": cuda_ms(lambda: qm.quant_matmul(x, wq, s_w, bias, act)),
+        "plain_ms": cuda_ms(lambda: qm.quant_matmul_plain(
+            x, wq, s_w, bias, act), iters=3 if heavy else 5, warmup=1),
+        "library_ms": cuda_ms(library) if lib_ok else None,
+        "float_ms": cuda_ms(float_layer),
+        "copy_ms": cuda_ms(lambda: floor_dst.copy_(floor_src)),
+        "bound_ms": b_ms, "bound_by": b_by, "gop": flops / 1e9,
+        "launches_per_forward": per_fwd,
+    }
+    if conv and x_shape[2] > 1:
+        log_quant_trace(qm, label, (x, wq, s_w, bias, act), K, res["ms"])
+        time_quant_tiles(qm, label, (x, wq, s_w, bias, act))
+    log(f"[K3 {label}] kernel {res['ms']:.4f} ms  plain "
+        f"{res['plain_ms']:.4f} ms  _int_mm chain "
+        f"{fmt_ms(res['library_ms'])}  float {'conv1d' if conv else 'linear'} "
+        f"{fmt_ms(res['float_ms'])}  copy floor {res['copy_ms']:.4f} ms  "
+        f"bound {b_ms:.4f} ms by {b_by} (kernel at {b_ms / res['ms']:.1%} "
+        f"of it)  {flops / 1e9:.1f} GOP {nbytes / 1e9:.3f} GB")
+    return res
+
+
+def log_quant_trace(qm, label: str, args, K: int, ms: float) -> None:
+    """The conv kernel's per-block timeline (thread 0's clock64 cycles),
+    averaged over the blocks of one launch: where a block's time goes."""
+    import torch
+    x, wq = args[0], args[1]
+    _, trace = qm.quant_matmul_trace(*args)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _, tiles = qm.conv_grid(x.shape[0], wq.shape[0], K, x.shape[2], sms)
+    steps = tiles * -(-K // qm.CONV_TILE[2])
+    mean = dict(zip(qm.TRACE_FIELDS, trace.double().mean(0).tolist()))
+    total = sum(mean.values())
+    per_step = ", ".join(f"{k} {mean[k] / steps:.0f}" for k in
+                         ("issue", "copy_wait", "quantize", "mma_wait",
+                          "product_barrier"))
+    log(f"[K3 {label} trace] {tiles} output-channel tiles and {steps} "
+        f"steps per block; cycles per block {total:.0f}: prologue "
+        f"{mean['prologue']:.0f}, epilogues {mean['epilogue']:.0f} "
+        f"({mean['epilogue'] / total:.1%}); per step: {per_step}; "
+        f"{trace.shape[0]} blocks, {ms * 1e3 * sms / trace.shape[0]:.1f} µs "
+        f"of SM time each")
+
+
+def time_quant_tiles(qm, label: str, args) -> None:
+    """K3 with the output-channel tiles per block forced to each count
+    the kernel takes at this shape, beside the count ``conv_grid`` picks:
+    the measurement behind its rule."""
+    import torch
+    x, wq = args[0], args[1]
+    nb, K, T = x.shape
+    N = wq.shape[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_tiles = -(-N // qm.CONV_TILE[0])
+    counts = [g for g in (1, 2, 4) if n_tiles % g == 0]
+    if -(-K // qm.CONV_TILE[2]) > qm.RES_STEPS or len(counts) == 1:
+        return
+    conv_grid, times = qm.conv_grid, {}
+    try:
+        for g in counts:
+            qm.conv_grid = lambda nb_, N_, K_, T_, sms_=132, g=g: (
+                (n_tiles // g, -(-T_ // qm.CONV_TILE[1]), nb_), g)
+            times[g] = cuda_ms(lambda: qm.quant_matmul(*args))
+    finally:
+        qm.conv_grid = conv_grid
+    log(f"[K3 {label} tiles] ms by output-channel tiles per block: "
+        + ", ".join(f"{g}: {t:.4f}" for g, t in times.items())
+        + f"; conv_grid picks {conv_grid(nb, N, K, T, sms)[1]}")
+
+
+def per_forward_k3(k3) -> None:
+    """Path C's K3 launches per forward at the table's shapes, summed:
+    kernel, bound, copy floor, ``_int_mm`` chain and float layers."""
+    for dt in ("float32", "bfloat16"):
+        rows = [r for r in k3 if r["shape"].endswith(dt)]
+
+        def total(key, kind=""):
+            return sum((r[key] or 0.0) * r["launches_per_forward"]
+                       for r in rows if r["shape"].startswith(kind))
+        log(f"[K3 per forward {dt}] kernel {total('ms'):.3f} ms (conv "
+            f"layout {total('ms', 'conv'):.3f} ms), bound "
+            f"{total('bound_ms'):.3f} ms, copy floor {total('copy_ms'):.3f} "
+            f"ms, _int_mm chain {total('library_ms'):.3f} ms, float layers "
+            f"{total('float_ms'):.3f} ms")
 
 
 # ----------------------------------------------------------------------
@@ -769,10 +879,12 @@ def path_c(tmp) -> dict:
 
     reset_counts()
     t0 = time.time()
-    report = inference(h, eval_=True)["eval"]
-    torch.cuda.synchronize()
+    with quant_shape_log() as shapes:
+        report = inference(h, eval_=True)["eval"]
+        torch.cuda.synchronize()
     wall = time.time() - t0
     counts = read_counts()
+    log_quant_shapes(shapes, batches)
     int8_scores = read_scores(h)
     log(f"[C] eval of {len(int8_scores)} trials over "
         f"{len(files)} files ({batches} batches of {BATCH_UTTS}x{num_eval} "
@@ -826,7 +938,86 @@ def path_c(tmp) -> dict:
         fail("path C: int8 embeddings stray from the float path")
     eval_at_list_size(engine, h, tmp / "vox1o")
     return {"engine": engine, "counts": counts, "batches": batches,
-            "waves": batch}
+            "waves": batch, "h": h}
+
+
+@contextlib.contextmanager
+def quant_shape_log():
+    """Record, by a forward pre-hook on every module, the kernel shape
+    of each ``QuantConv1d``/``QuantLinear`` call: ``{(x shape, N,
+    dtype): calls}``, x as K3's wrapper gets it (conv columns after
+    padding and im2col, Dense rows flattened)."""
+    import collections
+
+    import torch
+    from speakerverification_tpu_torch.quant import QuantConv1d, QuantLinear
+    shapes = collections.Counter()
+
+    def hook(mod, inputs):
+        x = inputs[0]
+        if isinstance(mod, QuantConv1d) and x.dim() == 3:
+            t_out = x.shape[2] + sum(mod.pad) - mod.d * (mod.k - 1)
+            shape = (x.shape[0], mod.k * x.shape[1], t_out)
+        elif isinstance(mod, QuantLinear) and x.dim() >= 2:
+            shape = (x.numel() // x.shape[-1], x.shape[-1])
+        else:
+            return
+        shapes[(shape, mod.wq.shape[0], str(x.dtype).split(".")[-1])] += 1
+
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+    try:
+        yield shapes
+    finally:
+        handle.remove()
+
+
+def log_quant_shapes(shapes, forwards: int) -> None:
+    """The logged shapes per forward against ``QUANT_SHAPES``."""
+    table = {(tuple(s), n): per for s, n, per, _ in QUANT_SHAPES if per}
+    seen = {}
+    for (shape, n, dtype), calls in sorted(shapes.items()):
+        seen[(tuple(shape), n)] = seen.get((tuple(shape), n), 0) + calls
+        log(f"[C shapes] x {list(shape)} N {n} {dtype}: "
+            f"{calls / forwards:g} per forward")
+    per_fwd = {k: v / forwards for k, v in seen.items()}
+    log(f"[C shapes] {'match' if per_fwd == table else 'DIFFER FROM'} "
+        f"chip_smoke.QUANT_SHAPES ({sum(per_fwd.values()):g} launches per "
+        f"forward)")
+
+
+def path_c_bf16(c: dict, card: str) -> None:
+    """Path C's model with ``mixedprec: true`` (bf16 parameters and
+    activations, frontend in fp32), float against int8 on one eval batch:
+    launches, int8-vs-float cosine, throughput and a profile of each."""
+    import numpy as np
+    import torch
+    from speakerverification_tpu_torch.inference import InferenceEngine
+    h = {**c["h"], "mixedprec": True}
+    waves = c["waves"]
+    int8 = InferenceEngine(h)
+    int8.embed_fn(waves)                  # calibrates on this batch
+    torch.cuda.synchronize()
+    reset_counts()
+    got = int8.embed_fn(waves)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {"mel_frontend": 1, "res2net_cascade": 0, "quant_matmul": 22}
+    log(f"[C bf16] launches per int8 forward: {counts}")
+    if counts != want:
+        fail(f"path C bf16: expected {want}, got {counts}")
+    flt = InferenceEngine({**h, "quant": None})
+    cos = cosines(got.cpu().numpy(), flt.embed_fn(waves).cpu().numpy())
+    ok = bool(np.isfinite(got.cpu().numpy()).all()) and cos.min() >= 0.99
+    log(f"[C bf16] int8 vs float embeddings, both bf16, {len(waves)} crops: "
+        f"min cos {cos.min():.5f}, mean {cos.mean():.5f} (need >= 0.99) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("path C bf16: int8 embeddings stray from the float path")
+    num_eval = RAW3_ECAPA_HPARAMS["num_eval"]
+    throughput("C bf16 float", flt, waves, num_eval, card)
+    throughput("C bf16 int8", int8, waves, num_eval, card)
+    profile("C bf16 float", flt, waves)
+    profile("C bf16 int8", int8, waves)
 
 
 def eval_at_list_size(engine, h, root) -> None:
@@ -896,6 +1087,15 @@ def profile(label: str, engine, waves) -> None:
         log(f"[{label} profile] {dev_us(e) / 3 / 1e3:8.3f} ms/fwd "
             f"{100 * dev_us(e) / 3 / 1e3 / wall:5.1f} %  {e.count // 3:4d}x  "
             f"{e.key[:90]}")
+    # the port's kernels by their function names in csrc/
+    for name, tag in (("K1", "mel_kernel"), ("K2", "cascade_kernel"),
+                      ("K3", "qmm_")):
+        mine = [e for e in events if tag in e.key]
+        if mine:
+            ms = sum(dev_us(e) for e in mine) / 3 / 1e3
+            log(f"[{label} profile] {name}: {ms:.3f} ms/fwd "
+                f"({100 * ms / wall:.1f} %) over "
+                f"{sum(e.count for e in mine) // 3} launches per forward")
 
 
 def main() -> None:
@@ -919,6 +1119,7 @@ def main() -> None:
     k1 = check_mel_kernel(dev, gen)
     k2 = check_cascade_kernel(dev, gen)
     k3 = check_quant_kernel(dev, gen)
+    per_forward_k3(k3)
     for r in k1 + k2 + k3:
         log("[timing] " + json.dumps({**r, "card": card}))
 
@@ -945,13 +1146,14 @@ def main() -> None:
     profile("A", a["engine"], waves_a)
     profile("B", b["engine"], b["waves"])
     profile("C", c["engine"], c["waves"])
+    path_c_bf16(c, card)
     paths = {"A": a["counts"], "B": b["counts"], "C": c["counts"]}
     by_path = {k: {p: counts[k] for p, counts in paths.items()}
                for k in KERNELS}
 
     main_shape = {"mel_frontend": "raw3_ecapa 8k",
                   "res2net_cascade": "H128 B80 d2 float32",
-                  "quant_matmul": "hot conv fp32"}
+                  "quant_matmul": HOT_QUANT}
     meta = {
         "mel_frontend": ("speakerverification_tpu_torch/csrc/mel_frontend.cu",
                          "speakerverification_tpu/ops/pallas_frontend.py:68"),

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from speakerverification_tpu_torch.ops.frontend import use_kernel
 from speakerverification_tpu_torch.ops.res2net_cascade import (
+    invalidate_packed,
     res2net_cascade,
     state_version,
 )
@@ -149,8 +150,9 @@ class Res2NetBlock(nn.Module):
         Kept until a parameter or buffer changes storage, dtype or
         version (``load_state_dict``, ``.to()``, a training step, an
         in-place edit), so the kernel's wrapper finds the same weights
-        tensor, and its packed weights, on every eval forward. A write
-        through ``.data`` bumps no version and is not seen."""
+        tensor, and its packed weights, on every eval forward. An edit
+        that no version counter records is not seen: after one, call
+        :meth:`invalidate_folded`."""
         key = tuple((p.data_ptr(), state_version(p), p.dtype)
                     for p in (*self.parameters(), *self.buffers()))
         if self._folded is None or self._folded[0] != key:
@@ -170,6 +172,21 @@ class Res2NetBlock(nn.Module):
                 self._folded = (key, (torch.stack(ws), torch.stack(cbs),
                                       torch.stack(ss), torch.stack(bs)))
         return self._folded[1]
+
+    def invalidate_folded(self) -> None:
+        """Forget the folded weights and the kernel wrapper's packed copy
+        of them, so that the next forward folds the parameters anew.
+
+        Needed after an in-place edit that no version counter records: a
+        write through ``.data`` or ``.detach()``, or any edit of an
+        inference tensor (parameters made or loaded under
+        ``torch.inference_mode`` keep no version). ``load_state_dict``,
+        ``.to()``, a training step and in-place edits of ordinary tensors
+        are seen without it. For a whole model, call it on each
+        ``Res2NetBlock`` in ``model.modules()``."""
+        if self._folded is not None:
+            invalidate_packed(self._folded[1][0])
+        self._folded = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self._use_fused(x):

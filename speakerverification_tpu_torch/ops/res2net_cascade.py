@@ -42,6 +42,7 @@ from speakerverification_tpu_torch.ops.mel_frontend import tf32_split
 
 __all__ = ["res2net_cascade", "res2net_cascade_plain", "KERNEL_HIDDEN",
            "group_windows", "tile_schedule", "pack_weights", "state_version",
+           "invalidate_packed",
            "launches"]
 
 launches = 0
@@ -217,6 +218,15 @@ def state_version(t: torch.Tensor) -> int:
     return -1 if t.is_inference() else t._version
 
 
+def invalidate_packed(weights: torch.Tensor) -> None:
+    """Forget the packed copy of ``weights`` that the wrapper keeps, so
+    that the next launch packs it anew. Needed after an in-place edit
+    that no version counter records: a write through ``.data`` or
+    ``.detach()``, or any edit of an inference tensor (which keeps no
+    version). In-place edits of ordinary tensors are seen without it."""
+    _packed.pop(weights, None)
+
+
 def _packed_weights(weights, dtype, device):
     key = (state_version(weights), weights.data_ptr(), dtype, device)
     hit = _packed.get(weights)
@@ -281,7 +291,9 @@ def res2net_cascade(x: torch.Tensor, weights: torch.Tensor,
     group's window must fit the kernel's 128 rows: past 128 frames that
     takes ``1 + 2 (s-2) dilation <= 128`` (dilation 10 at s = 8), and the
     kernel raises ``ValueError`` on a wider halo. The packed weights are
-    kept per ``weights`` tensor until it changes or dies."""
+    kept per ``weights`` tensor until its storage or version changes or
+    it dies; after an edit that keeps both, call
+    :func:`invalidate_packed`."""
     if x.is_cuda:
         return _launch(x, weights, conv_bias, bn_scale, bn_shift, dilation)
     if x.device.type == "cpu":

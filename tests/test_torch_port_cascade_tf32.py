@@ -332,3 +332,71 @@ def test_folded_and_packed_weights_under_inference_mode():
                                atol=1e-5)
     assert rc.state_version(w_inf) == -1
     assert rc._packed_weights(w_inf, torch.float32, w_inf.device) is packed
+
+
+def _edit_unseen(blk, how):
+    """An in-place edit that no version counter records."""
+    conv = blk.TDNNBlock_3.Conv1d_0.Conv_0
+    if how == "data":
+        conv.weight.data.mul_(1.5)
+    else:        # the block lives in inference mode: no version at all
+        with torch.inference_mode():
+            conv.weight.mul_(1.5)
+
+
+def _inference_block():
+    with torch.inference_mode():
+        return _block()
+
+
+@pytest.mark.parametrize("how", ["data", "inference"])
+def test_an_unrecorded_edit_stays_stale_until_invalidate_folded(how):
+    """ROADMAP C.4: the folded weights miss a write through ``.data`` and
+    any edit of an inference tensor; ``invalidate_folded`` makes the next
+    forward fold the edited parameters."""
+    blk = _block() if how == "data" else _inference_block()
+    x = torch.randn(2, blk.features, 30, generator=torch.Generator()
+                    .manual_seed(2))
+    with torch.inference_mode():
+        before = blk(x)
+    _edit_unseen(blk, how)
+    with torch.inference_mode():
+        stale = blk(x)
+    assert torch.equal(stale, before)
+    blk.invalidate_folded()
+    with torch.inference_mode():
+        fresh = blk(x)
+    assert not torch.allclose(fresh, before)
+    torch.testing.assert_close(fresh, _plain_out(blk, x), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("how", ["data", "inference"])
+def test_an_unrecorded_edit_keeps_the_packed_weights_until_invalidated(how):
+    """The wrapper's packed-weights cache, keyed on the same version and
+    storage, misses the same edits; ``invalidate_packed`` drops the entry
+    and ``invalidate_folded`` drops the block's."""
+    if how == "data":
+        w = torch.randn(GROUPS - 1, 3, 64, 64)
+    else:
+        with torch.inference_mode():
+            w = torch.randn(GROUPS - 1, 3, 64, 64)
+    packed = rc._packed_weights(w, torch.float32, w.device)
+    if how == "data":
+        w.data.mul_(2.0)
+    else:
+        with torch.inference_mode():
+            w.mul_(2.0)
+    assert rc._packed_weights(w, torch.float32, w.device) is packed
+    rc.invalidate_packed(w)
+    fresh = rc._packed_weights(w, torch.float32, w.device)
+    assert not torch.equal(fresh, packed)
+    assert torch.equal(fresh, rc.pack_weights(w, torch.float32))
+
+    blk = _block(hidden=64)
+    folded_w = blk.folded()[0]
+    kept = rc._packed_weights(folded_w, torch.float32, folded_w.device)
+    blk.invalidate_folded()
+    assert rc._packed_weights(folded_w, torch.float32,
+                              folded_w.device) is not kept
+    assert blk.folded()[0] is not folded_w

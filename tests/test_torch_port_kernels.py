@@ -256,6 +256,69 @@ def test_quant_matmul_kernel_matches_plain_exactly(cuda, x_shape, n, dtype):
     assert torch.equal(got, ref)
 
 
+# every shape path C launches (x as the wrapper gets it, N), and the
+# edges of the conv kernel's tiles and loads: T = 1 (run as Dense rows),
+# T under one time tile, T = 1, 7 and 0 (mod 8), K 96, K 100 (not a
+# multiple of 16 or 32) and 80 (of 16, not of 32), N 50, 192 and 320
+PATH_C_QUANT_SHAPES = [
+    ((160, 1024, 1575), 1024), ((160, 1024, 315), 1024),
+    ((160, 1024, 105), 1024), ((160, 3072, 105), 1536),
+    ((160, 4608, 105), 128), ((160, 512, 201), 512), ((160, 512, 1), 128),
+    ((160, 1536, 201), 1536), ((160, 1024), 1024), ((160, 3072), 320),
+    ((160, 3072), 192)]
+QUANT_EDGES = [((2, 96, 1), 50), ((2, 96, 37), 50), ((1, 96, 129), 192),
+               ((2, 96, 135), 192), ((2, 96, 136), 320), ((2, 100, 77), 50),
+               ((2, 80, 263), 130), ((3, 96, 8), 320)]
+
+
+def _check_quant_kernel(args):
+    before = qm.launches
+    got = qm.quant_matmul(*args)
+    torch.cuda.synchronize()
+    assert qm.launches == before + 1
+    ref = qm.quant_matmul_plain(*args)
+    assert got.dtype == args[0].dtype and got.shape == ref.shape
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_shape,n", PATH_C_QUANT_SHAPES + QUANT_EDGES)
+def test_quant_matmul_kernel_path_c_shapes_and_edges(cuda, x_shape, n, dtype):
+    _check_quant_kernel(_quant_inputs(x_shape, n, dtype, cuda,
+                                      seed=n + x_shape[-1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_shape,n", [((2, 96, 41), 70), ((3, 64, 263), 300),
+                                       ((37, 96), 50)])
+def test_quant_matmul_kernel_takes_a_view_at_an_element_offset(
+        cuda, x_shape, n, dtype):
+    """x one element into a storage that ends at its last element: the
+    first and last 16-byte chunks straddle x and are loaded element by
+    element."""
+    x, wq, s_w, b, act = _quant_inputs(x_shape, n, dtype, "cpu", seed=n)
+    flat = torch.empty(1 + x.numel(), dtype=dtype, device=cuda)
+    flat[1:] = x.reshape(-1).to(cuda)
+    view = flat[1:].view(x_shape)
+    assert view.data_ptr() % 16 and view.is_contiguous()
+    _check_quant_kernel((view, wq.to(cuda), s_w.to(cuda), b.to(cuda), act))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_shape", [(2, 128, 201), (160, 512)])
+def test_quant_matmul_kernel_saturates_at_127(cuda, x_shape, dtype):
+    """A static scale far under max|x| and weights at +-127: most inputs
+    clip, and the int32 sums reach 127 * 127 * K."""
+    x, wq, s_w, b, _ = _quant_inputs(x_shape, 96, dtype, cuda, seed=5)
+    wq = torch.where(wq >= 0, 127, -127).to(torch.int8)
+    x = 50 * x
+    assert (qm.quantize_act(x, 1.0).abs() == 127).float().mean() > 0.9
+    _check_quant_kernel((x, wq, s_w, b, 1.0))
+
+
 @pytest.mark.cuda
 def test_quant_matmul_kernel_rejects_what_it_cannot_take(cuda):
     x, wq, s_w, b, act = _quant_inputs((2, 32, 20), 16, torch.float32, cuda)
