@@ -17,7 +17,13 @@ Phases, each of which fails the run:
      ``quant: int8`` on synthetic WAVs, mel and int8 GEMM kernels counted,
      scores held against the float path on the same trials; then the
      eval wall of a list of VoxCeleb1-O's size (4,880 files, 37,720 trials);
-  6. throughput and a profile of all three paths.
+  6. throughput and a profile of paths A-C;
+  7. path D: full-width Raw3_ECAPA from msgpack checkpoints in the JAX
+     package's layout, written here by the port (best/last/top-k/EMA:
+     selection, soup, EMA), through ``inference()``'s verbs (prepare embed
+     and cohorts, eval and test with S-norm, predict), the HTTP bank routes
+     (``/identify``, ``/enroll``, ``/unenroll``) with the bank on the card,
+     and a bank of 1,000,000 rows x 512 in fp32 and bf16.
 Every path is compared with the same model's plain path on the CPU.
 
 The script imports nothing of the JAX package. hparams are built in code
@@ -142,7 +148,11 @@ def check_mel_kernel(dev, gen):
                                                 win_length=400,
                                                 hop_length=160,
                                                 fmin=20.0, fmax=7600.0),
-               8 * 10, 32000)]
+               8 * 10, 32000),
+              # an odd window (its centre is n_fft/2 - 1/2): the kernel's
+              # unfolded route; no configuration of the repo uses one
+              ("raw3_ecapa 8k win201", FrontendConfig(win_length=201),
+               8 * 20, 16000)]
     for label, cfg, n_rows, samples in shapes:
         wave = 0.1 * torch.randn(n_rows, samples, generator=gen, device=dev)
         padded = reflect_pad(pre_emphasis(wave), cfg.n_fft // 2).contiguous()
@@ -164,18 +174,19 @@ def check_mel_kernel(dev, gen):
         two_k = cs.shape[1]
         K, n_mels = fb.shape
         F = got.shape[1]
-        # only the window's basis rows are nonzero, and K1 folds the DFT
-        # about n_fft/2 (the window is symmetric about it): P = u @ Cf and
-        # Q = v @ Sf over win/2 + 1 rows, then the power and the mel product
+        # only the window's basis rows are nonzero; where the window is
+        # symmetric about n_fft/2, K1 folds the DFT about it: P = u @ Cf
+        # and Q = v @ Sf over win/2 + 1 rows, then the power and the mel
+        # product. Any other window takes the unfolded route: the DFT
+        # over all win rows
+        folded = mf.symmetric(cs, rows)
         c = cfg.n_fft // 2
         depth = max(rows_hi - 1 - c, c - rows_lo) + 1
-        flops = (2.0 * n_rows * F * (2 * depth * K + K * n_mels)
-                 + 3.0 * n_rows * F * K)
-        # the unfolded count over the window's rows, for comparison with
-        # the scalar kernel this one replaced
         win = rows_hi - rows_lo
         unfolded = (2.0 * n_rows * F * (win * two_k + K * n_mels)
                     + 3.0 * n_rows * F * K)
+        flops = (2.0 * n_rows * F * (2 * depth * K + K * n_mels)
+                 + 3.0 * n_rows * F * K) if folded else unfolded
         nbytes = 4.0 * (padded.numel() + cs.numel() + fb.numel() + got.numel())
         # K1 takes every product as three TF32 tensor-core products
         # (3xTF32); the scalar kernel was held to the fp32 SIMT bound of
@@ -205,13 +216,13 @@ def check_mel_kernel(dev, gen):
             "bound_ms": b_ms, "bound_by": b_by,
             "unfolded_bound_ms": unfolded_ms,
             "fp32_simt_bound_ms": simt_ms,
-            "gflop": flops / 1e9,
+            "gflop": flops / 1e9, "route": "folded" if folded else "unfolded",
         }
         log(f"[K1 {label}] kernel {res['ms']:.4f} ms  plain "
             f"{res['plain_ms']:.4f} ms  stft+matmul {res['library_ms']:.4f} ms "
             f"(its max_abs_err vs plain {lib_err:.3e})  kernel/library "
             f"{res['ms'] / res['library_ms']:.3f}")
-        log(f"[K1 {label}] bound {b_ms:.4f} ms by {b_by} (folded DFT, "
+        log(f"[K1 {label}] bound {b_ms:.4f} ms by {b_by} ({res['route']} DFT, "
             f"{flops / 1e9:.2f} GFLOP, 3xTF32 at 495 TFLOP/s; kernel at "
             f"{b_ms / res['ms']:.1%} of it); unfolded {unfolded / 1e9:.2f} "
             f"GFLOP: 3xTF32 bound {unfolded_ms:.4f} ms, fp32 SIMT bound "
@@ -1020,6 +1031,453 @@ def path_c_bf16(c: dict, card: str) -> None:
     profile("C bf16 int8", int8, waves)
 
 
+# ----------------------------------------------------------------------
+# path D: checkpoints, the verbs and the speaker banks
+# ----------------------------------------------------------------------
+def seeded_model(seed: int):
+    """Full-width Raw3_ECAPA with random weights and BN from ``seed``."""
+    import torch
+    from speakerverification_tpu_torch.builder import encoder_from_hparams
+    from speakerverification_tpu_torch.weights import init_weights_
+    model = encoder_from_hparams(RAW3_ECAPA_HPARAMS)
+    init_weights_(model, torch.Generator().manual_seed(seed))
+    randomize_bn_(model, seed=seed + 1)
+    return model
+
+
+def flax_tree(model, seed: int):
+    """The model's weights as the JAX trainer's checkpoint holds them,
+    beside a loss head's ``W`` (read and not restored by the port)."""
+    import numpy as np
+    from speakerverification_tpu_torch.weights import params_to_jax
+    params, stats = params_to_jax(model.state_dict())
+    params["loss"] = {"W": np.random.default_rng(seed).normal(
+        0, 0.05, (512, 100)).astype(np.float32)}
+    return params, stats
+
+
+def state_equal(engine, params, stats) -> bool:
+    """Whether the engine serves exactly these flax trees."""
+    import torch
+    from speakerverification_tpu_torch.weights import params_from_jax
+    want = params_from_jax({"backbone": params["backbone"]},
+                           {"backbone": stats["backbone"]})
+    got = engine.model.state_dict()
+    return all(torch.equal(got[k].cpu(), want[k]) for k in got
+               if not k.endswith("num_batches_tracked"))
+
+
+def write_checkpoints(model_dir) -> dict:
+    """best_state, a different last_state, best_state_top{1,2,3} and an
+    EMA checkpoint of full-width Raw3_ECAPA, in the JAX trainer's msgpack
+    layout, written by the port; returns the trees."""
+    import numpy as np
+    from speakerverification_tpu_torch.checkpoint import save_checkpoint
+
+    def state(params, stats, opt_state=None):
+        return {"step": np.asarray(100, np.int32), "params": params,
+                "batch_stats": stats, "opt_state": opt_state or {}}
+
+    best_model = seeded_model(31)
+    best = flax_tree(best_model, 31)
+    trees = {"best": best, "model": best_model}
+    t0 = time.time()
+    save_checkpoint(model_dir / "best_state.msgpack", state(*best),
+                    {"epoch": 3, "loss": 1.5})
+    last = flax_tree(seeded_model(41), 41)
+    save_checkpoint(model_dir / "last_state.msgpack", state(*last),
+                    {"epoch": 4, "loss": 1.7})
+    trees["top"] = []
+    for i in (1, 2, 3):
+        top = flax_tree(seeded_model(50 + i), 50 + i)
+        save_checkpoint(model_dir / f"best_state_top{i}.msgpack",
+                        state(*top), {"epoch": 4 - i})
+        trees["top"].append(top)
+    ema_params, _ = flax_tree(seeded_model(61), 61)
+    trees["ema"] = (ema_params, best[1])
+    # an optax chain is stored as a dict with index keys; track_ema last
+    save_checkpoint(model_dir.parent / "ema_state.msgpack",
+                    state(*best, {"0": {}, "1": {"ema": ema_params}}))
+    size = (model_dir / "best_state.msgpack").stat().st_size
+    log(f"[D] wrote 6 msgpack checkpoints of full-width Raw3_ECAPA "
+        f"({size / 1e6:.1f} MB each) in {time.time() - t0:.2f} s")
+    return trees
+
+
+def check_checkpoints(h, trees, waves) -> dict:
+    """The engine picks, loads, averages and EMA-loads the JAX-layout
+    checkpoints; the file's embeddings are the model's."""
+    import numpy as np
+    import torch
+    from speakerverification_tpu_torch.inference import (
+        InferenceEngine,
+        _select_weights,
+        make_eval_embed_fn,
+        run_dirs,
+    )
+    model_dir = run_dirs(h)["model"]
+    picked = _select_weights(h, model_dir)
+    if picked != model_dir / "best_state.msgpack":
+        fail(f"path D: _select_weights picked {picked}, not best_state")
+    t0 = time.time()
+    engine = InferenceEngine(h)
+    t_load = time.time() - t0
+    if not state_equal(engine, *trees["best"]):
+        fail("path D: the engine's weights differ from best_state's")
+    ref_fn = make_eval_embed_fn(trees["model"].to(engine.device))
+    got, ref = engine.embed_fn(waves), ref_fn(torch.from_numpy(waves))
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, ref))
+    diff = (got - ref).abs().max().item()
+    ok = same or diff <= 1e-6
+    log(f"[D] _select_weights -> {picked.name}; engine built and loaded in "
+        f"{t_load:.2f} s; weights bit-identical to the model written; "
+        f"embeddings of {len(waves)} crops from the file vs the model: "
+        f"torch.equal {same}, max |diff| {diff:.3e} (bound 1e-6) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("path D: embeddings from the checkpoint differ from the model's")
+    trees["model"].cpu()
+
+    soup = InferenceEngine({**h, "average_checkpoints": True,
+                            "use_ema": True})
+    mean = {}
+    for part in (0, 1):
+        mean[part] = {}
+        flat = [t[part]["backbone"] for t in trees["top"]]
+
+        def avg(*xs):
+            if isinstance(xs[0], dict):
+                return {k: avg(*(x[k] for x in xs)) for k in xs[0]}
+            return (sum(np.asarray(x, np.float32) for x in xs)
+                    / np.float32(len(xs)))
+        mean[part] = {"backbone": avg(*flat)}
+    ok = state_equal(soup, mean[0], mean[1])
+    log(f"[D] average_checkpoints (with use_ema, which it ignores): "
+        f"{soup.weights_path.name} + 2, weights equal the fp32 mean of the "
+        f"three bit for bit {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("path D: the soup is not the mean of best_state_top{1,2,3}")
+    del soup
+    ema_path = model_dir.parent / "ema_state.msgpack"
+    ema = InferenceEngine({**h, "initial_model_infer": str(ema_path),
+                           "use_ema": True})
+    raw = InferenceEngine({**h, "use_ema": True})    # best_state: no EMA
+    ok = (state_equal(ema, *trees["ema"])
+          and state_equal(raw, *trees["best"]))
+    log(f"[D] use_ema: the EMA subtree of opt_state served; on a checkpoint "
+        f"without one the raw weights {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("path D: use_ema served the wrong weights")
+    return {"engine": engine, "load_s": t_load}
+
+
+def write_speakers(root, sr: int, n_spk: int = 16, seconds: float = 3.0):
+    """``n_spk`` speaker folders of one WAV each (a harmonic tone over
+    noise per speaker), and a train list of them."""
+    import numpy as np
+    from speakerverification_tpu_torch.data.audio import write_wav
+    rng = np.random.default_rng(21)
+    tt = np.arange(int(seconds * sr)) / sr
+    files = []
+    for spk in range(n_spk):
+        f0 = 95.0 + 37.0 * spk
+        sig = sum(0.25 / (k + 1) * np.sin(2 * np.pi * f0 * (k + 1) * tt
+                                          + rng.uniform(0, 6))
+                  for k in range(3)) + 0.05 * rng.normal(0, 1, tt.size)
+        path = root / "speakers" / f"spk{spk:02d}" / "u0.wav"
+        write_wav(path, sig.astype(np.float32), sr)
+        files.append(str(path))
+    train = root / "train_list.txt"
+    train.write_text("".join(f"spk{i:02d} {f}\n" for i, f in enumerate(files)))
+    return files, str(root / "speakers"), str(train)
+
+
+def timed(label: str, fn):
+    import torch
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    log(f"[D wall] {label}: {wall:.3f} s")
+    return out, wall
+
+
+def run_verbs(h, tmp, files, data_folder, train) -> dict:
+    """``inference()`` with prepare (embed, then cohorts), eval and test
+    with S-norm on those cohorts, and predict on the enrolled files."""
+    import numpy as np
+    from speakerverification_tpu_torch.inference import inference, run_dirs
+    walls = {}
+    _, walls["prepare embed"] = timed("prepare (embed, 16 speakers)", lambda: (
+        inference({**h, "prepare": "embed", "data_folder": data_folder},
+                  prepare=True)))
+    mdir = run_dirs(h)["model"]
+    embeds = np.load(mdir / "embeds.npy")
+    classes = np.load(mdir / "classes.npy", allow_pickle=True).item()
+    if embeds.shape != (16, 512) or not np.isfinite(embeds).all() \
+            or sorted(classes.values()) != [f"spk{i:02d}" for i in range(16)]:
+        fail(f"path D: prepare embed wrote {embeds.shape} {classes}")
+    cohorts = str(tmp / "cohorts.npy")
+    _, walls["prepare cohorts"] = timed("prepare (cohorts, 16 speakers)", (
+        lambda: inference({**h, "prepare": "cohorts", "train_annotation": train,
+                           "cohorts_path": cohorts}, prepare=True)))
+    if np.load(cohorts).shape != (16, 512):
+        fail("path D: prepare cohorts wrote a wrong bank")
+    sr = h["audio_spec"]["sample_rate"]
+    _, trials = write_trial_data(tmp / "trials", sr)
+    hn = {**h, "scoring_mode": "norm", "cohorts_path": cohorts,
+          "evaluation_file": trials, "verification_file": trials,
+          "test_threshold": 0}
+    out, walls["eval norm"] = timed("eval (S-norm, 40 trials)",
+                                    lambda: inference(hn, eval_=True))
+    rep = out["eval"]
+    rows = read_scores(hn)
+    if rep["n_trials"] != 40 or len(rows) != 40 \
+            or not np.isfinite(rows).all() or not np.isfinite(rep["eer"]):
+        fail(f"path D: eval with S-norm incomplete: {rep}")
+    log(f"[D] eval, S-norm on the prepared cohorts: EER {rep['eer']:.4f}% "
+        f"minDCF {rep['min_dcf']:.4f} over {rep['n_trials']} trials")
+    out, walls["test"] = timed("test (threshold 0: tuned on the eval list "
+                               "first, S-norm)", lambda: inference(hn, test=True))
+    rep = out["test"]
+    lines = open(rep["output"]).read().strip().splitlines()
+    log_text = (run_dirs(h)["result"] / "Testing_log.txt").read_text()
+    if len(lines) != 40 or rep["n"] != 40 or "precision" not in log_text \
+            or rep["threshold"] == 0:
+        fail(f"path D: test wrote {len(lines)} lines, report {rep}")
+    log(f"[D] test: {len(lines)} result lines, threshold "
+        f"{rep['threshold']:.4f}, accuracy {rep['accuracy']:.4f}, "
+        f"classification report in Testing_log.txt")
+    out, walls["predict"] = timed("predict (16 files)", lambda: inference(
+        h, predict=files))
+    pred = out["predict"]
+    own = [(name, score) for (name, score), f in zip(pred, files)
+           if name == f.split("/")[-2]]
+    worst = min(score for _, score in pred)
+    ok = len(own) == 16 and worst >= 0.9999
+    log(f"[D] predict on the enrolled files: {len(own)}/16 name their own "
+        f"speaker, min score {worst:.7f} (need >= 0.9999) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"path D: predict named {pred}")
+    return {"walls": walls, "embeds": embeds, "classes": classes}
+
+
+def http_banks(h, engine, files, tmp) -> dict:
+    """The HTTP app on the prepared bank, on the card: /identify,
+    /enroll, /identify, /unenroll, and the artifacts on disk."""
+    from http.server import ThreadingHTTPServer
+    import threading
+
+    import numpy as np
+    import torch
+    from speakerverification_tpu_torch.data.audio import write_wav
+    from speakerverification_tpu_torch.inference import run_dirs
+    from speakerverification_tpu_torch.serving import make_serving_app
+
+    hs = {**h, "serving": {"batch_utts": BATCH_UTTS, "max_wait_ms": 2,
+                           "device_bank": True}}
+    handler, batcher = make_serving_app(engine, hs)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    port = httpd.server_address[1]
+    sr = h["audio_spec"]["sample_rate"]
+    tt = np.arange(3 * sr) / sr
+    newcomer = tmp / "newcomer.wav"
+    write_wav(newcomer, (0.3 * np.sign(np.sin(2 * np.pi * 77.0 * tt))
+                         + 0.05 * np.random.default_rng(5).normal(
+                             0, 1, tt.size)).astype(np.float32), sr)
+    try:
+        status, out = http(port, "POST", "/identify", {"path": files[3]})
+        if status != 200 or out.get("speaker") != "spk03":
+            fail(f"path D: /identify of spk03's file gave {status} {out}")
+        lat = []
+        for f in files[:8]:
+            t0 = time.time()
+            status, out = http(port, "POST", "/identify",
+                               {"path": f, "k": 5})
+            lat.append(time.time() - t0)
+            if status != 200 or out["speaker"] != f.split("/")[-2] \
+                    or len(out.get("candidates", [])) != 5:
+                fail(f"path D: /identify k=5 of {f} gave {status} {out}")
+        bank = handler.banks["device"]
+        if bank is None or bank.device != engine.device:
+            fail("path D: the served bank is not on the engine's card")
+        status, out = http(port, "POST", "/enroll",
+                           {"path": str(newcomer), "name": "newcomer"})
+        if status != 200 or out != {"speaker": "newcomer", "index": 16,
+                                    "enrolled": 17}:
+            fail(f"path D: /enroll gave {status} {out}")
+        status, out = http(port, "POST", "/identify", {"path": str(newcomer)})
+        if status != 200 or out["speaker"] != "newcomer":
+            fail(f"path D: /identify of the newcomer gave {status} {out}")
+        mdir = run_dirs(h)["model"]
+        on_disk = np.load(mdir / "embeds.npy")
+        if len(on_disk) != 17:
+            fail("path D: /enroll did not persist the bank")
+        status, out = http(port, "POST", "/unenroll", {"name": "newcomer"})
+        if status != 200 or out != {"speaker": "newcomer", "enrolled": 16}:
+            fail(f"path D: /unenroll gave {status} {out}")
+        embeds = np.load(mdir / "embeds.npy")
+        classes = np.load(mdir / "classes.npy", allow_pickle=True).item()
+        rows = bank._bank[:bank.n].float().cpu().numpy()
+        norm = embeds / np.linalg.norm(embeds, axis=1, keepdims=True)
+        ok = (bank.n == 16 and classes == handler.banks["classes"]
+              and classes == bank._labels
+              and np.array_equal(embeds, handler.banks["embeds"])
+              and np.abs(rows - norm).max() <= 1e-6)
+        log(f"[D] HTTP on the prepared bank (SpeakerBank on "
+            f"{bank.device}): /identify of an enrolled file names it; "
+            f"/enroll newcomer -> index 16, /identify finds it, /unenroll "
+            f"removes it; embeds.npy/classes.npy reloaded from disk match "
+            f"the bank (max row diff {np.abs(rows - norm).max():.2e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("path D: the persisted artifacts disagree with the bank")
+        torch.cuda.synchronize()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.close()
+        thread.join(timeout=30)
+    ms = [1e3 * t for t in lat]
+    log(f"[D] /identify over HTTP (k=5, one request at a time, a 3 s WAV "
+        f"read on the server, 16-speaker bank on the card): mean "
+        f"{np.mean(ms):.2f} ms, min {min(ms):.2f}, max {max(ms):.2f} over "
+        f"{len(ms)} requests")
+    return {"identify_ms": ms}
+
+
+def bank_at_scale(dev, planted_rows, card: str, N: int = 1_000_000) -> list:
+    """A bank of 1,000,000 seeded unit rows x 512 dims made on the card,
+    with path D's embeddings and 144 seeded unit rows planted at known
+    indices: identify at Q 1 and 160, k 1 and 10, fp32 and bf16, against
+    the planted indices and the CPU product; ms per identify against the
+    bound; an add of 1,000 rows and one remove."""
+    import numpy as np
+    import torch
+    from speakerverification_tpu_torch.evaluation.bank import SpeakerBank
+    D, Q = 512, 160
+    gen = torch.Generator(device=dev).manual_seed(71)
+    rows = torch.randn(N, D, generator=gen, device=dev)
+    rows /= rows.norm(dim=1, keepdim=True)
+    extra = torch.randn(Q - len(planted_rows), D, generator=gen, device=dev)
+    queries = torch.cat([torch.as_tensor(planted_rows, device=dev).float(),
+                         extra])
+    queries /= queries.norm(dim=1, keepdim=True)
+    where = torch.randperm(N, generator=gen, device=dev)[:Q]
+    rows[where] = queries
+    where_np = where.cpu().numpy()
+    qn = queries.cpu().numpy()
+    # planted rows closer than this to another planted row may tie with
+    # it in bf16 (its scores near 1 are 2^-8 apart)
+    sim = qn @ qn.T - 2 * np.eye(Q)
+    separated = sim.max(axis=1) < 0.99
+    results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        t0 = time.time()
+        bank = SpeakerBank(rows, dtype=dtype, device=dev)
+        torch.cuda.synchronize()
+        t_build = time.time() - t0
+        name = str(dtype).split(".")[-1]
+        for q, k in ((1, 1), (1, 10), (Q, 1), (Q, 10)):
+            s, i = bank.identify(queries[:q], k=k)
+            top = i[:, 0] == where_np[:q]
+            # fp32 finds every planted row first; bf16 those that are well
+            # separated, and for the rest another planted row within its
+            # resolution (random weights make path D's embeddings close)
+            need = np.ones(q, bool) if dtype == torch.float32 \
+                else separated[:q]
+            near = np.isin(i[:, 0], where_np) & (s[:, 0] >= 1 - 2 ** -7)
+            rows_ok = top | (~need & near)
+            got_rows = bank._bank[torch.as_tensor(i.reshape(-1), device=dev)]
+            ref = np.einsum("qkd,qd->qk", got_rows.float().cpu().numpy()
+                            .reshape(q, k, D),
+                            queries[:q].to(dtype).float().cpu().numpy())
+            err = np.abs(ref - s).max()
+            tol = 1e-5 if dtype == torch.float32 else 2 ** -8
+            ok = bool(rows_ok.all() and err <= tol)
+            item = 4 if dtype == torch.float32 else 2
+            nbytes = N * D * item + q * D * 4 + q * k * 12
+            peak = PEAK_FP32 if dtype == torch.float32 else PEAK_BF16
+            b_ms, b_by = bound_ms(2.0 * q * N * D, nbytes, peak)
+            ms = cuda_ms(lambda: bank.identify(queries[:q], k=k), iters=10)
+            log(f"[D bank {name} Q{q} k{k}] planted index first for "
+                f"{int(top.sum())}/{q} (need {int(need.sum())}, the others "
+                f"a planted row at >= 1 - 2^-7: {int(rows_ok.sum())}/{q}); "
+                f"top-k scores vs "
+                f"the CPU product on the same rows: max |diff| {err:.2e} "
+                f"(tol {tol:.1e}) {'ok' if ok else 'FAIL'}")
+            log(f"[D bank {name} Q{q} k{k}] {ms:.4f} ms per identify, bound "
+                f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e9:.3f} GB at 3.35 TB/s, "
+                f"{2.0 * q * N * D / 1e9:.1f} GFLOP at "
+                f"{peak / 1e12:.0f} TFLOP/s; at {b_ms / ms:.1%} of it); bank "
+                f"built in {t_build:.3f} s ({card})")
+            if not ok:
+                fail(f"path D: the 1M-row {name} bank missed planted rows")
+            results.append({"dtype": name, "Q": q, "k": k, "ms": ms,
+                            "bound_ms": b_ms, "bound_by": b_by})
+            if (q, k) in ((1, 1), (Q, 10)):
+                profile(f"D bank {name} Q{q} k{k}", None, None, top=6,
+                        fn=lambda: bank.identify(queries[:q], k=k))
+        new = torch.randn(1000, D, generator=gen, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        idx = bank.add(new)
+        torch.cuda.synchronize()
+        t_add = time.time() - t0
+        t0 = time.time()
+        bank.remove(int(idx[0]))
+        torch.cuda.synchronize()
+        t_remove = time.time() - t0
+        log(f"[D bank {name}] add of 1,000 rows {1e3 * t_add:.3f} ms (grows "
+            f"{N} -> {bank.n_pad} padded rows), one remove "
+            f"{1e3 * t_remove:.3f} ms; {bank.nbytes / 1e9:.3f} GB on the card")
+        if bank.n != N + 999:
+            fail("path D: add/remove left a wrong row count")
+        del bank
+        torch.cuda.empty_cache()
+    return results
+
+
+def path_d(tmp, card: str) -> dict:
+    """Full-width Raw3_ECAPA from JAX-layout checkpoints through the
+    inference verbs and the speaker banks: ``inference(prepare=...)``,
+    ``eval``/``test`` with S-norm, ``predict``, the HTTP bank routes and
+    a 1M-row bank."""
+    import numpy as np
+    import torch
+    from speakerverification_tpu_torch.inference import run_dirs
+    sr = RAW3_ECAPA_HPARAMS["audio_spec"]["sample_rate"]
+    h = {**RAW3_ECAPA_HPARAMS, "save_folder": str(tmp / "save"),
+         "eval_batch_size": BATCH_UTTS,
+         "dataloader_options": {"num_workers": 4}}
+    trees = write_checkpoints(run_dirs(h)["model"])
+    files, data_folder, train = write_speakers(tmp, sr)
+    from speakerverification_tpu_torch.data.loader import EvalDataLoader
+    waves, _ = next(iter(EvalDataLoader(files, h["audio_spec"],
+                                        num_eval=h["num_eval"],
+                                        batch_size=BATCH_UTTS)))
+    waves = waves.reshape(-1, waves.shape[-1])
+    ck = check_checkpoints(h, trees, waves)
+    reset_counts()
+    verbs = run_verbs(h, tmp, files, data_folder, train)
+    served = http_banks(h, ck["engine"], files, tmp)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[D] launches over the verbs and the HTTP exchange: {counts}")
+    if counts["mel_frontend"] < 1 or counts["res2net_cascade"] != 0 \
+            or counts["quant_matmul"] != 0:
+        fail(f"path D: expected mel launches only, got {counts}")
+    compare_with_cpu(ck["engine"], waves, "D")
+    bank = bank_at_scale(torch.device("cuda", 0), verbs["embeds"], card)
+    return {"counts": counts, "walls": verbs["walls"], "bank": bank,
+            "identify_ms": served["identify_ms"], "engine": ck["engine"],
+            "waves": waves}
+
+
 def eval_at_list_size(engine, h, root) -> None:
     """Time the eval verb of an int8 engine that is already calibrated
     and built on a trial list of VoxCeleb1-O's size (40 speakers, 4,874
@@ -1056,16 +1514,18 @@ def throughput(label: str, engine, waves, num_eval: int, card: str) -> None:
         f"{crops / num_eval / ms * 1e3:.1f} utterances/s ({card})")
 
 
-def profile(label: str, engine, waves) -> None:
-    """Device time by kernel over three forwards (torch.profiler)."""
+def profile(label: str, engine, waves, fn=None, top: int = 12) -> None:
+    """Device time by kernel over three forwards (torch.profiler), or
+    over three calls of ``fn``."""
     import torch
     from torch.profiler import ProfilerActivity, profile as prof
-    engine.embed_fn(waves)
+    fn = fn or (lambda: engine.embed_fn(waves))
+    fn()
     torch.cuda.synchronize()
     with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         t0 = time.time()
         for _ in range(3):
-            engine.embed_fn(waves)
+            fn()
         torch.cuda.synchronize()
         wall = (time.time() - t0) / 3 * 1e3
     # device-side events only (kernels, copies): an aten op's self device
@@ -1079,12 +1539,12 @@ def profile(label: str, engine, waves) -> None:
 
     rows = sorted(events, key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in events) / 3 / 1e3
-    log(f"[{label} profile] wall {wall:.2f} ms per forward, device busy "
+    log(f"[{label} profile] wall {wall:.2f} ms per call, device busy "
         f"{busy:.2f} ms ({100 * busy / wall:.1f} %)")
-    for e in rows[:12]:
+    for e in rows[:top]:
         if dev_us(e) <= 0:
             break
-        log(f"[{label} profile] {dev_us(e) / 3 / 1e3:8.3f} ms/fwd "
+        log(f"[{label} profile] {dev_us(e) / 3 / 1e3:8.3f} ms/call "
             f"{100 * dev_us(e) / 3 / 1e3 / wall:5.1f} %  {e.count // 3:4d}x  "
             f"{e.key[:90]}")
     # the port's kernels by their function names in csrc/
@@ -1093,7 +1553,7 @@ def profile(label: str, engine, waves) -> None:
         mine = [e for e in events if tag in e.key]
         if mine:
             ms = sum(dev_us(e) for e in mine) / 3 / 1e3
-            log(f"[{label} profile] {name}: {ms:.3f} ms/fwd "
+            log(f"[{label} profile] {name}: {ms:.3f} ms/call "
                 f"({100 * ms / wall:.1f} %) over "
                 f"{sum(e.count for e in mine) // 3} launches per forward")
 
@@ -1147,7 +1607,13 @@ def main() -> None:
     profile("B", b["engine"], b["waves"])
     profile("C", c["engine"], c["waves"])
     path_c_bf16(c, card)
-    paths = {"A": a["counts"], "B": b["counts"], "C": c["counts"]}
+    tmp = Path(tempfile.mkdtemp(prefix="svtorch_banks_"))
+    try:
+        d = path_d(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    paths = {"A": a["counts"], "B": b["counts"], "C": c["counts"],
+             "D": d["counts"]}
     by_path = {k: {p: counts[k] for p, counts in paths.items()}
                for k in KERNELS}
 

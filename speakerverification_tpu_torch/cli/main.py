@@ -1,14 +1,18 @@
 """Command-line entry point of the port (the ported part of ``cli/main.py``).
 
     python -m speakerverification_tpu_torch.cli.main --do_infer --eval --config y.yaml
-    python -m speakerverification_tpu_torch.cli.main --do_infer --eval --quant int8 --config y.yaml
+    python -m speakerverification_tpu_torch.cli.main --do_infer --prepare --config y.yaml
+    python -m speakerverification_tpu_torch.cli.main --do_infer --test --config y.yaml
+    python -m speakerverification_tpu_torch.cli.main --do_infer --predict a.wav b.wav --config y.yaml
     python -m speakerverification_tpu_torch.cli.main --do_serve --config y.yaml
 
-Both verbs run on CUDA unless ``--device cpu`` is given. Flags that are
-not mode flags override the YAML key of the same name. The other verbs
-(``--do_train``, ``--do_export``, ``--test``, ``--prepare``,
-``--predict``) exit with code 2: they are not ported yet; so does
-``--do_infer`` without a verb.
+Every verb runs on CUDA unless ``--device cpu`` is given. Flags that are
+not mode flags override the YAML key of the same name (so ``--prepare``
+runs the preparation that the YAML key ``prepare`` names, ``cohorts``
+by default). ``--do_infer`` runs its verbs in the JAX order (prepare,
+eval, test, predict); with none of them it exits 2. The resolved config
+is frozen into the run's ``config/config_frozen.yaml``. ``--do_train``
+and ``--do_export`` exit 2: they are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,9 +20,10 @@ from __future__ import annotations
 import argparse
 import sys
 
-from speakerverification_tpu_torch.config import read_config
+from speakerverification_tpu_torch.config import dump_config, read_config
 
-# mode flags select what runs; they never land in the hparams
+# mode flags select what runs; they never land in the hparams (the YAML
+# key ``prepare`` selects cohorts or embed, the ``--prepare`` flag runs it)
 _MODE_FLAGS = {"config", "do_train", "do_infer", "do_export", "do_serve",
                "serve_host", "serve_port", "eval", "test", "prepare",
                "predict", "device"}
@@ -38,7 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval", action="store_true")
     p.add_argument("--test", action="store_true")
     p.add_argument("--prepare", action="store_true")
-    p.add_argument("--predict", nargs="*", default=None)
+    p.add_argument("--predict", nargs="*", default=None,
+                   help="audio files for identification")
     p.add_argument("--device", type=str, default=None, choices=["cpu", "cuda"],
                    help="where the model runs (default: cuda)")
     p.add_argument("--eval_transport", type=str, default=None,
@@ -47,8 +53,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quant", type=str, default=None, choices=["int8"],
                    help="int8 embedding extraction (static scales "
                         "calibrated on the first batch)")
+    p.add_argument("--average_ckpts", action="store_true", default=None,
+                   dest="average_checkpoints",
+                   help="average the retained best_state_top{1..k} "
+                        "checkpoints before inference (model soup)")
+    p.add_argument("--use_ema", action="store_true", default=None,
+                   help="serve the EMA weights kept by optimizer.ema_decay")
     p.add_argument("--initial_model_infer", type=str, default=None,
-                   help="a torch.save'd state_dict of the port")
+                   help="a msgpack checkpoint of the JAX package or a "
+                        "torch.save'd state_dict of the port (.pt)")
+    p.add_argument("--test_threshold", type=float, default=None)
     p.add_argument("--scoring_mode", type=str, default=None)
     p.add_argument("--mixedprec", action="store_true", default=None,
                    help="bf16 compute")
@@ -74,19 +88,24 @@ def main(argv=None) -> int:
         print("--config is required", file=sys.stderr)
         return 2
     hparams = load_hparams(args)
+    from speakerverification_tpu_torch.inference import run_dirs
+    dump_config(hparams, run_dirs(hparams)["config"] / "config_frozen.yaml")
 
     if args.do_infer:
-        # --predict with no files parses to [], which asks all the same
-        for verb, asked in (("--test", args.test), ("--prepare", args.prepare),
-                            ("--predict", args.predict is not None)):
-            if asked:
-                return _not_ported(verb)
-        if not args.eval:
-            print("--do_infer needs --eval, its only ported verb",
+        # --predict with no files parses to []
+        if args.predict is not None and not args.predict:
+            print("--predict needs at least one audio file", file=sys.stderr)
+            return 2
+        if not (args.eval or args.test or args.prepare or args.predict):
+            print("--do_infer needs --eval, --test, --prepare or --predict",
                   file=sys.stderr)
             return 2
         from speakerverification_tpu_torch.inference import inference
-        inference(hparams, eval_=args.eval, device=args.device)
+        out = inference(hparams, eval_=args.eval, test=args.test,
+                        prepare=args.prepare, predict=args.predict,
+                        device=args.device)
+        for name, score in out.get("predict", []):
+            print(f"[RESULT] predict: {name} {score:.6f}")
         return 0
 
     if args.do_serve:

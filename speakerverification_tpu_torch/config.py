@@ -8,19 +8,21 @@ subset of HyperPyYAML, so one yaml file drives both packages.
 * ``!ref prefix/<key>/suffix`` — string interpolation.
 * ``!ref <a> * 3`` — arithmetic over resolved numeric values.
 
-PyYAML is imported inside :func:`load_yaml` only: the serving path can
-run from hparams built in code on a machine without it.
+PyYAML is imported inside :func:`load_yaml` and :func:`dump_config`
+only: the serving path can run from hparams built in code on a machine
+without it.
 """
 
 from __future__ import annotations
 
 import ast
+import copy
 import operator
 import re
 from pathlib import Path
 from typing import Any, Mapping
 
-__all__ = ["read_config", "load_yaml", "resolve_refs"]
+__all__ = ["read_config", "load_yaml", "resolve_refs", "dump_config"]
 
 _REF_TOKEN = re.compile(r"<([^<>]+)>")
 
@@ -150,3 +152,22 @@ def read_config(config_path: str | Path, args: Any = None,
         for k, v in overrides.items():
             hparams[k] = v
     return hparams
+
+
+def dump_config(config: Mapping[str, Any], path: str | Path) -> None:
+    """Freeze the resolved config beside a run's directories."""
+    import yaml
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as fout:
+        yaml.safe_dump(_plain(config), fout, sort_keys=False)
+
+
+def _plain(obj: Any) -> Any:
+    if isinstance(obj, Mapping):
+        return {k: _plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_plain(v) for v in obj]
+    if isinstance(obj, Path):
+        return str(obj)
+    return copy.copy(obj)

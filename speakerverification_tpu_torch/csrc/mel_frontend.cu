@@ -31,6 +31,12 @@
 //   win/2 + 1 folded rows: two products of half the depth. The wrapper
 //   folds the basis (Cf, Sf) and hands the kernel, per folded row d, the
 //   span columns of x[c+d] and x[c-d] and their masks.
+//   A window that is not symmetric about c (an odd win_length: its
+//   centre is c - 1/2) takes the unfolded route of this same kernel: the
+//   wrapper hands it row d = sample lo + d with masks 1 and 0 and the
+//   plain basis (C, S), so u = v = x and P, Q are the DFT's re and im
+//   over all win rows, twice the folded depth. The wrapper picks the
+//   route by the window's shape (ops/mel_frontend.py: symmetric).
 // - The DFT on wgmma m64n64k8 tf32: warpgroup 0 takes a column block's
 //   P (A = u), warpgroup 1 its Q (A = v), for the block's 64 frame rows.
 //   Each warp forms and splits its 16 rows of A in registers straight
@@ -464,7 +470,7 @@ static int set_attributes() {
 }
 
 // chunks and fold as the wrapper packs them (layouts above): Rf folded
-// rows (a multiple of 8); each frame row's span is its samples
+// rows, or win rows on the unfolded route (a multiple of 8); each frame row's span is its samples
 // [lo, lo + R); fold's span columns count SKEW empty slots after every
 // hop samples. Returns the launch's cudaError_t (0 on success).
 extern "C" int mel_frontend_launch(const float* wave, const float* chunks,

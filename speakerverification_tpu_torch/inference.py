@@ -1,20 +1,26 @@
-"""Embedding extraction and trial evaluation (port of ``make_eval_embed_fn``
-from ``training/train_step.py`` and of ``InferenceEngine``/``inference``
-from ``inference.py``).
+"""Embedding extraction and the inference verbs (port of
+``make_eval_embed_fn`` from ``training/train_step.py`` and of
+``InferenceEngine``/``inference`` from ``inference.py``).
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``; with
-no CUDA device and no explicit device it raises. Weights come from a
-``torch.save``d port ``state_dict`` (``weights.params_from_jax``
-converts a JAX tree into one); without a file the model gets random
-weights from the config's seed. ``quant: int8`` extracts through the
-int8 GEMMs of ``quant.py``, calibrated on the first batch. Of the
-inference verbs, ``--eval`` is ported; reading JAX msgpack checkpoints,
-EMA weights and checkpoint soups are not yet.
+no CUDA device and no explicit device it raises. Its weights, as the
+JAX engine chooses them (:func:`_select_weights`): an explicit file or
+``initial_model_infer``, else the run's ``best_state``, ``last_state``
+or newest ``model_state_*`` msgpack checkpoint; ``average_checkpoints``
+averages the retained ``best_state_top*`` ("model soup") and
+``use_ema`` serves the EMA weights. Checkpoints are the JAX package's
+msgpack files (``checkpoint.py``); a ``.pt`` file is a ``torch.save``d
+port ``state_dict``. Without weights the model gets random weights from
+the config's seed. ``quant: int8`` extracts through the int8 GEMMs of
+``quant.py``, calibrated on the first batch. The verbs: ``evaluate``
+(``--eval``), ``test`` (``--test``), ``prepare`` (``--prepare``) and
+``predict`` (``--predict``).
 """
 
 from __future__ import annotations
 
 import csv
+import functools
 import time
 from pathlib import Path
 from typing import Callable, Mapping, Optional
@@ -28,21 +34,39 @@ from speakerverification_tpu_torch.builder import (
     encoder_from_hparams,
     eval_normalize_from_hparams,
 )
+from speakerverification_tpu_torch.checkpoint import (
+    average_checkpoints,
+    load_ema_params,
+    load_params_only,
+)
 from speakerverification_tpu_torch.evaluation.evaluator import (
     evaluate_from_list,
+    predict_identity,
+    prepare_cohorts,
+    prepare_embeddings,
+    test_from_list,
 )
 from speakerverification_tpu_torch.evaluation.metrics import (
     compute_error_rates,
     compute_min_dcf,
     tune_threshold_from_score,
 )
-from speakerverification_tpu_torch.evaluation.reports import dump_fa_fr_pairs
+from speakerverification_tpu_torch.evaluation.reports import (
+    classification_report,
+    dump_fa_fr_pairs,
+    fbeta_score,
+)
 from speakerverification_tpu_torch.ops import quant_matmul
 from speakerverification_tpu_torch.quant import (
     calibrate_act_scales,
     make_int8_embed_fn,
 )
-from speakerverification_tpu_torch.weights import cast_copy, init_weights_
+from speakerverification_tpu_torch.weights import (
+    cast_copy,
+    init_weights_,
+    params_from_jax,
+    params_to_jax,
+)
 
 __all__ = ["InferenceEngine", "inference", "make_eval_embed_fn",
            "resolve_device", "run_dirs"]
@@ -57,9 +81,9 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def run_dirs(hparams: Mapping) -> dict:
-    """``save/<model>/<loss>/{model,result,config}``, created (own copy
-    of ``training/trainer.py``'s layout)."""
+def run_dirs(hparams: Mapping, create: bool = True) -> dict:
+    """``save/<model>/<loss>/{model,result,config}``, created unless
+    ``create`` is false (own copy of ``training/trainer.py``'s layout)."""
     base = Path(hparams.get("save_folder", "save"))
     model = hparams.get("model", {}).get("name", "model")
     if isinstance(model, (list, tuple)):     # mixed multi-encoder config
@@ -68,9 +92,29 @@ def run_dirs(hparams: Mapping) -> dict:
     root = base / str(model) / str(crit)
     dirs = {"root": root, "model": root / "model", "result": root / "result",
             "config": root / "config"}
-    for d in dirs.values():
+    for d in dirs.values() if create else ():
         d.mkdir(parents=True, exist_ok=True)
     return dirs
+
+
+def _select_weights(hparams: Mapping, model_dir: Path) -> Optional[Path]:
+    """``initial_model_infer`` > ``best_state`` > ``last_state`` > the
+    newest ``model_state_*``. A name that exists both as a msgpack file
+    and as an orbax directory gives the newer of the two (the loader
+    then refuses a directory by name)."""
+    cand = hparams.get("initial_model_infer")
+    if cand and Path(str(cand)).exists():
+        return Path(str(cand))
+    for name in ("best_state", "last_state"):
+        cands = [p for p in (model_dir / (name + ".msgpack"),
+                             model_dir / name) if p.exists()]
+        if cands:
+            return max(cands, key=lambda p: p.stat().st_mtime)
+    epochs = sorted(
+        set(model_dir.glob("model_state_*.msgpack"))
+        | {p for p in model_dir.glob("model_state_*") if p.is_dir()},
+        key=lambda p: p.name.removesuffix(".msgpack"))
+    return epochs[-1] if epochs else None
 
 
 def make_eval_embed_fn(model: nn.Module, normalize: bool = True,
@@ -109,19 +153,9 @@ class InferenceEngine:
         if quant not in (None, "int8"):
             raise ValueError(f"unknown quant mode {quant!r} (expected 'int8')")
         self.model = encoder_from_hparams(self.hparams)
-
-        cand = weights or self.hparams.get("initial_model_infer")
-        path = Path(str(cand)) if cand else None
-        if path is not None and path.exists():
-            state = torch.load(path, map_location="cpu", weights_only=True)
-            self.model.load_state_dict(state, strict=True)
-            self.weights_path = path
-            print(f"[INFO] loaded weights: {path}")
-        else:
-            gen = torch.Generator().manual_seed(int(self.hparams.get("seed", 0)))
-            init_weights_(self.model, gen)
-            self.weights_path = None
-            print("[WARN] no weights found — using random initialization")
+        gen = torch.Generator().manual_seed(int(self.hparams.get("seed", 0)))
+        init_weights_(self.model, gen)
+        self.weights_path = self._load_weights(weights)
         self.model.to(self.device).eval()
 
         transport = str(self.hparams.get("eval_transport", "float32"))
@@ -139,6 +173,65 @@ class InferenceEngine:
         # int8: static activation scales, calibrated on the first batch
         self.act_scales: Optional[dict] = None
         self._embed = None if quant == "int8" else self._float_embed
+
+    @functools.cached_property
+    def dirs(self) -> dict:
+        """The run's directories, created on first use."""
+        return run_dirs(self.hparams)
+
+    def _load_weights(self, weights: Optional[str]) -> Optional[Path]:
+        """The JAX engine's loading branch (``inference.py:93-140``) onto
+        the model's initial weights; returns the file loaded, or None."""
+        h = self.hparams
+        model_dir = run_dirs(h, create=False)["model"]
+        path = Path(weights) if weights else _select_weights(h, model_dir)
+        # an explicit file or initial_model_infer names one checkpoint:
+        # averaging must not override it
+        explicit = weights is not None or bool(h.get("initial_model_infer"))
+        soup = None
+        if h.get("average_checkpoints") and not explicit:
+            soup = sorted(model_dir.glob("best_state_top*.msgpack")) or [
+                p for p in sorted(model_dir.glob("best_state_top*"))
+                if p.is_dir()]
+        if soup:
+            if h.get("use_ema"):
+                print("[WARN] use_ema is ignored when average_checkpoints "
+                      "averaging applies — serving the top-k soup of RAW "
+                      "weights (disable one of the two)")
+            self._set_state(average_checkpoints(soup, self._state()))
+            print(f"[INFO] averaged {len(soup)} checkpoints: "
+                  f"{[p.name for p in soup]}")
+            return soup[0]
+        if path is None or not path.exists():
+            print("[WARN] no weights found — using random initialization")
+            return None
+        if path.suffix == ".pt":
+            state = torch.load(path, map_location="cpu", weights_only=True)
+            self.model.load_state_dict(state, strict=True)
+            print(f"[INFO] loaded weights: {path}")
+            return path
+        loaded = None
+        if h.get("use_ema"):
+            loaded = load_ema_params(path, self._state())
+            if loaded is None:
+                print("[WARN] use_ema: checkpoint carries no EMA state "
+                      "(train with optimizer.ema_decay); serving raw weights")
+            else:
+                print(f"[INFO] loaded EMA weights: {path}")
+        if loaded is None:
+            loaded = load_params_only(path, self._state())
+            print(f"[INFO] loaded weights: {path}")
+        self._set_state(loaded)
+        return path
+
+    def _state(self) -> dict:
+        """The model's weights as flax ``params``/``batch_stats`` trees."""
+        params, stats = params_to_jax(self.model.state_dict())
+        return {"params": params, "batch_stats": stats}
+
+    def _set_state(self, state: Mapping) -> None:
+        self.model.load_state_dict(params_from_jax(
+            state["params"], state["batch_stats"], like=self.model))
 
     def _wire(self, waves) -> np.ndarray:
         waves = np.asarray(waves)
@@ -189,6 +282,12 @@ class InferenceEngine:
             quant_matmul.build()
         self._float_embed(self._wire(waves))
 
+    def _cohorts(self) -> Optional[np.ndarray]:
+        h = self.hparams
+        if h.get("scoring_mode", "cosine") in ("norm", "zt_norm"):
+            return np.load(str(h["cohorts_path"]))
+        return None
+
     def evaluate(self, listfile: Optional[str] = None) -> dict:
         """Score ``evaluation_file``: EER, AUC, minDCF and thresholds; writes
         ``evaluation_results.csv``, the false-accept/false-reject pair
@@ -197,8 +296,7 @@ class InferenceEngine:
         h = self.hparams
         listfile = listfile or h["evaluation_file"]
         mode = h.get("scoring_mode", "cosine")
-        cohorts = (np.load(str(h["cohorts_path"]))
-                   if mode in ("norm", "zt_norm") else None)
+        cohorts = self._cohorts()
         t0 = time.time()
         scores, labels, trials = evaluate_from_list(
             self.embed_fn, listfile, h["audio_spec"],
@@ -218,7 +316,7 @@ class InferenceEngine:
             c_miss=float(dcf.get("dcf_c_miss", 1)),
             c_fa=float(dcf.get("dcf_c_fa", 1)))
 
-        result_dir = run_dirs(h)["result"]
+        result_dir = self.dirs["result"]
         with open(result_dir / "evaluation_results.csv", "w", newline="") as f:
             w = csv.writer(f)
             w.writerow(["label", "score", "trial"])
@@ -240,14 +338,85 @@ class InferenceEngine:
               f"AUC {report['auc']:.4f}  thr {report['threshold']:.4f}")
         return report
 
+    def test(self, listfile: Optional[str] = None,
+             threshold: Optional[float] = None) -> dict:
+        """Decisions on ``verification_file`` at ``test_threshold``; a
+        threshold of 0 is first tuned on ``evaluation_file``. Writes
+        ``<list>_results.txt`` and, for a labeled list, appends the
+        classification report to ``Testing_log.txt``."""
+        h = self.hparams
+        listfile = listfile or h["verification_file"]
+        threshold = threshold if threshold is not None else \
+            float(h.get("test_threshold", 0))
+        if threshold == 0:
+            threshold = float(self.evaluate()["threshold"])
+        out = self.dirs["result"] / (Path(listfile).stem + "_results.txt")
+        scores, preds, labels = test_from_list(
+            self.embed_fn, listfile, h["audio_spec"], threshold,
+            num_eval=int(h.get("num_eval", 10)),
+            scoring_mode=h.get("scoring_mode", "cosine"),
+            cohorts=self._cohorts(), normalize=False, output_file=str(out))
+        report = {"threshold": threshold, "n": len(scores),
+                  "accept_rate": float(np.mean(preds)), "output": str(out)}
+        if labels is not None and len(labels):
+            report["accuracy"] = float(np.mean(preds == labels))
+            report["fbeta"] = {b: fbeta_score(labels, preds, b)
+                               for b in (0.5, 2)}
+            cls_report = classification_report(labels, preds,
+                                               ["Label '0'", "Label '1'"])
+            with (self.dirs["result"] / "Testing_log.txt").open("a") as f:
+                f.write(f"{time.strftime('%Y-%m-%d %H:%M:%S')} thr "
+                        f"{threshold}\n{cls_report}\n")
+            print(cls_report)
+        print(f"[RESULT] test: {report}")
+        return report
+
+    def prepare(self, prepare_type: Optional[str] = None):
+        """``cohorts`` (the YAML key ``prepare``'s default): the cohort
+        bank of ``train_annotation`` at ``cohorts_path``; ``embed``: the
+        enrollment bank of ``data_folder``'s speaker folders as
+        ``embeds.npy``/``classes.npy`` in the run's model directory."""
+        h = self.hparams
+        prepare_type = prepare_type or h.get("prepare", "cohorts")
+        if prepare_type == "cohorts":
+            return prepare_cohorts(
+                self.embed_fn, h["train_annotation"], h["audio_spec"],
+                num_eval=int(h.get("num_eval", 10)),
+                save_path=str(h.get("cohorts_path", "cohorts.npy")))
+        if prepare_type == "embed":
+            return prepare_embeddings(
+                self.embed_fn, h["data_folder"], h["audio_spec"],
+                num_eval=int(h.get("num_eval", 10)),
+                save_dir=str(self.dirs["model"]))
+        raise ValueError(f"unknown prepare type {prepare_type!r}")
+
+    def predict(self, files, threshold: float = 0.0):
+        """The nearest enrolled speaker of each file, against the bank
+        ``prepare('embed')`` wrote: ``(names, scores)``."""
+        h = self.hparams
+        embeds = np.load(self.dirs["model"] / "embeds.npy")
+        classes = np.load(self.dirs["model"] / "classes.npy",
+                          allow_pickle=True).item()
+        return predict_identity(self.embed_fn, files, embeds, classes,
+                                h["audio_spec"],
+                                num_eval=int(h.get("num_eval", 10)),
+                                threshold=threshold)
+
 
 def inference(hparams: Mapping, eval_: bool = False, test: bool = False,
               prepare: bool = False, predict=None, device=None) -> dict:
-    """CLI-facing dispatcher. Only ``eval_`` is ported; the other verbs
-    raise ``NotImplementedError``."""
-    for verb, asked in (("--test", test), ("--prepare", prepare),
-                        ("--predict", predict is not None)):
-        if asked:
-            raise NotImplementedError(f"{verb} is not ported yet")
+    """CLI-facing dispatcher, in the JAX order: prepare, eval, test,
+    predict (``predict``: a list of files, empty for none)."""
     engine = InferenceEngine(hparams, device=device)
-    return {"eval": engine.evaluate()} if eval_ else {}
+    out = {}
+    if prepare:
+        engine.prepare()
+        out["prepared"] = True
+    if eval_:
+        out["eval"] = engine.evaluate()
+    if test:
+        out["test"] = engine.test()
+    if predict:
+        names, scores = engine.predict(predict)
+        out["predict"] = list(zip(names, [float(s) for s in scores]))
+    return out

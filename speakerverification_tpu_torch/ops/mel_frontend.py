@@ -6,11 +6,13 @@ in PyTorch. The kernel does the rest: the overlapped frame gather (the
 TPU kernel left that to an XLA gather), the windowed real DFT, the
 power spectrum and the mel projection, at fp32 accuracy on the TF32
 tensor cores: every product is three TF32 products of operands split
-into ``hi + lo`` (:func:`tf32_split`). The DFT is folded about
-``n_fft/2`` (:func:`fold_basis`), which halves its depth. The folded
-basis and the mel bank are split once here and packed in the order the
-tensor-core instructions read them (:func:`pack_constants`,
-:func:`chunk_stream`).
+into ``hi + lo`` (:func:`tf32_split`). For a window symmetric about
+``n_fft/2`` the DFT is folded about it (:func:`fold_basis`), which
+halves its depth; any other window (an odd ``win_length``) takes the
+unfolded route of the same kernel, the window's full depth, chosen by
+the window's shape (:func:`symmetric`). The (folded) basis and the mel
+bank are split once here and packed in the order the tensor-core
+instructions read them (:func:`pack_constants`, :func:`chunk_stream`).
 
 :func:`mel_frontend` launches the kernel for a CUDA tensor and runs
 :func:`mel_frontend_plain`, the same function in plain PyTorch, for a
@@ -35,7 +37,7 @@ from speakerverification_tpu_torch.ops.frontend import (
 )
 
 __all__ = ["make_mel_frontend", "mel_frontend", "mel_frontend_plain",
-           "launches"]
+           "symmetric", "launches"]
 
 launches = 0
 _launches_lock = threading.Lock()
@@ -60,12 +62,15 @@ def _rows(n_fft: int, rows) -> tuple[int, int]:
     return lo, hi
 
 
-def fold_rows(n_fft: int, rows) -> tuple[int, int, int]:
+def fold_rows(n_fft: int, rows, folded: bool = True) -> tuple[int, int, int]:
     """The kernel's geometry for the window rows ``[lo, hi)``: each frame's
     span is its samples ``[lo, hi)``, folded about ``c = n_fft/2`` into
     ``count`` rows ``d = 0 .. count-1`` (``x[c+d]`` with ``x[c-d]``), a
-    multiple of the mma depth. Returns ``(lo, hi - lo, count)``."""
+    multiple of the mma depth; unfolded, row ``d`` is sample ``lo + d``.
+    Returns ``(lo, hi - lo, count)``."""
     lo, hi = _rows(n_fft, rows)
+    if not folded:
+        return lo, hi - lo, -(-(hi - lo) // MMA_DEPTH) * MMA_DEPTH
     c = n_fft // 2
     if not lo <= c < hi:
         raise ValueError(f"window rows {rows} do not hold n_fft/2 = {c}")
@@ -73,30 +78,74 @@ def fold_rows(n_fft: int, rows) -> tuple[int, int, int]:
     return lo, hi - lo, -(-(d_max + 1) // MMA_DEPTH) * MMA_DEPTH
 
 
-def fold_basis(cs: torch.Tensor, rows) -> tuple[torch.Tensor, ...]:
-    """The basis folded about ``c = n_fft/2``: for ``d >= 0``,
-    ``u_d = mp_d x[c+d] + mm_d x[c-d]`` times ``P[d]`` gives the cos
-    products and ``v_d = mp_d x[c+d] - mm_d x[c-d]`` times ``Q[d]`` the sin
-    products, up to the sign ``(-1)^k`` that the power drops. The masks
-    ``mp``, ``mm`` are 1 where that side lies in the window rows. Needs a
-    window symmetric about ``c`` (every centred window of the repo is).
-    Returns ``(P, Q, mp, mm)``, ``P, Q [count, K]``."""
+def _fold_geometry(cs: torch.Tensor, rows):
     n_fft, two_k = cs.shape
-    K = two_k // 2
     lo, span, count = fold_rows(n_fft, rows)
     hi, c = lo + span, n_fft // 2
     d = torch.arange(count, device=cs.device)
     plus, minus = c + d, c - d
     mp = plus < hi
     mm = (minus >= lo) & (d > 0)
+    return plus, minus, mp, mm
+
+
+def _asymmetry(cs: torch.Tensor, rows) -> float:
+    """How far the basis is from symmetric about ``c = n_fft/2`` over the
+    window rows, relative to its largest entry (0 for a centred even
+    window; inf where the rows do not hold ``c``)."""
+    n_fft, two_k = cs.shape
+    K = two_k // 2
+    lo, hi = _rows(n_fft, rows)
+    if not lo <= n_fft // 2 < hi:
+        return float("inf")
+    plus, minus, mp, mm = _fold_geometry(cs, rows)
     cos, sin = cs[:, :K], cs[:, K:]
     take_p, take_m = plus.clamp(max=n_fft - 1), minus.clamp(min=0)
     both = (mp & mm)[:, None]
-    scale = cs.abs().max()
-    if ((cos[take_p] - cos[take_m]).abs() * both).max() > 1e-6 * scale or \
-            ((sin[take_p] + sin[take_m]).abs() * both).max() > 1e-6 * scale:
+    err = torch.maximum(((cos[take_p] - cos[take_m]).abs() * both).max(),
+                        ((sin[take_p] + sin[take_m]).abs() * both).max())
+    return float(err / cs.abs().max())
+
+
+def symmetric(cs: torch.Tensor, rows) -> bool:
+    """Whether the kernel may fold this basis: its window is symmetric
+    about ``n_fft/2`` (every even ``win_length`` centred in the frame;
+    an odd one is symmetric about ``n_fft/2 - 1/2`` and is not). The
+    wrapper takes the folded route where this holds, the unfolded one
+    elsewhere."""
+    return _asymmetry(cs, rows) <= 1e-6
+
+
+def fold_basis(cs: torch.Tensor, rows,
+               folded: bool = True) -> tuple[torch.Tensor, ...]:
+    """The basis folded about ``c = n_fft/2``: for ``d >= 0``,
+    ``u_d = mp_d x[c+d] + mm_d x[c-d]`` times ``P[d]`` gives the cos
+    products and ``v_d = mp_d x[c+d] - mm_d x[c-d]`` times ``Q[d]`` the sin
+    products, up to the sign ``(-1)^k`` that the power drops. The masks
+    ``mp``, ``mm`` are 1 where that side lies in the window rows. Needs a
+    window symmetric about ``c`` (:func:`symmetric`).
+
+    Unfolded (``folded=False``, any window): row ``d`` is sample
+    ``lo + d`` with ``mp = 1``, ``mm = 0``, ``P = cos``, ``Q = sin``, so
+    that ``u = v = x`` and the kernel takes the plain DFT over the
+    window's rows. Returns ``(P, Q, mp, mm)``, ``P, Q [count, K]``."""
+    n_fft, two_k = cs.shape
+    K = two_k // 2
+    cos, sin = cs[:, :K], cs[:, K:]
+    if not folded:
+        lo, span, count = fold_rows(n_fft, rows, folded=False)
+        d = torch.arange(count, device=cs.device)
+        mp = d < span
+        take = (lo + d).clamp(max=n_fft - 1)
+        zero = torch.zeros_like(cos[:1])
+        P = torch.where(mp[:, None], cos[take], zero)
+        Q = torch.where(mp[:, None], sin[take], zero)
+        return P, Q, mp.float(), torch.zeros_like(mp, dtype=torch.float32)
+    if _asymmetry(cs, rows) > 1e-6:
         raise ValueError("the kernel folds the DFT about n_fft/2: the "
                          "window must be symmetric about it")
+    plus, minus, mp, mm = _fold_geometry(cs, rows)
+    take_p, take_m = plus.clamp(max=n_fft - 1), minus.clamp(min=0)
     zero = torch.zeros_like(cos[:1])
     P = torch.where(mp[:, None], cos[take_p],
                     torch.where(mm[:, None], cos[take_m], zero))
@@ -129,11 +178,11 @@ def mma_fragments(b: torch.Tensor) -> torch.Tensor:
     return torch.cat([hi, lo], -1).contiguous()
 
 
-def pack_constants(cs: torch.Tensor, fb: torch.Tensor, rows,
-                   nb: int) -> tuple[torch.Tensor, torch.Tensor]:
+def pack_constants(cs: torch.Tensor, fb: torch.Tensor, rows, nb: int,
+                   folded: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's constants, split into TF32 ``hi + lo``.
 
-    The folded basis (:func:`fold_basis`) of bins ``0 .. K-2``, in column
+    The (folded) basis (:func:`fold_basis`) of bins ``0 .. K-2``, in column
     blocks of ``nb`` bins (zero-padded), as ``[ncb, nkc, chunk]``: per
     block ``nkc`` chunks of 16 folded rows (zero-padded), each
     ``[k-step 2][P, Q][hi, lo][tile]``, a tile the 8 rows x ``nb``
@@ -149,7 +198,7 @@ def pack_constants(cs: torch.Tensor, fb: torch.Tensor, rows,
     if n_fft != 2 * (K - 1):
         raise ValueError(f"the kernel takes the Nyquist bin apart: needs "
                          f"K = n_fft/2 + 1, got {K} bins at n_fft {n_fft}")
-    P, Q, _, _ = fold_basis(cs, rows)
+    P, Q, _, _ = fold_basis(cs, rows, folded)
     count = P.shape[0]
     nkc = -(-count // 16)
     ncb = -(-(K - 1) // nb)
@@ -167,20 +216,26 @@ def pack_constants(cs: torch.Tensor, fb: torch.Tensor, rows,
     return tiles.reshape(ncb, nkc, -1).contiguous(), mma_fragments(mels)
 
 
-def fold_table(cs: torch.Tensor, rows, hop: int) -> torch.Tensor:
+def fold_table(cs: torch.Tensor, rows, hop: int,
+               folded: bool = True) -> torch.Tensor:
     """Per folded row ``d``: the span columns of ``x[c+d]`` and ``x[c-d]``
     (relative to a row's first sample ``lo``, with ``SPAN_SKEW`` empty
     slots after every ``hop`` samples, as the kernel stores the span; a
     masked side points at ``x[c]``), the masks
     ``mp``, ``mm``, and the Nyquist bin's folded basis value:
-    ``[count, 5]`` fp32."""
+    ``[count, 5]`` fp32. Unfolded, row ``d`` points at ``x[lo + d]`` (a
+    padding row, and the masked side, at ``x[lo]``)."""
     n_fft = cs.shape[0]
-    lo, _, count = fold_rows(n_fft, rows)
-    P, _, mp, mm = fold_basis(cs, rows)
-    c = n_fft // 2
+    lo, _, count = fold_rows(n_fft, rows, folded)
+    P, _, mp, mm = fold_basis(cs, rows, folded)
     d = torch.arange(count, device=cs.device)
-    plus = torch.where(mp > 0, c + d, c) - lo
-    minus = torch.where(mm > 0, c - d, c) - lo
+    if folded:
+        c = n_fft // 2
+        plus = torch.where(mp > 0, c + d, c) - lo
+        minus = torch.where(mm > 0, c - d, c) - lo
+    else:
+        plus = torch.where(mp > 0, d, 0)
+        minus = torch.zeros_like(d)
     col = lambda i: (i + SPAN_SKEW * (i // hop)).float()  # noqa: E731
     return torch.stack([col(plus), col(minus), mp, mm, P[:, -1]], 1) \
         .contiguous()
@@ -201,17 +256,22 @@ def chunk_stream(basis: torch.Tensor, mfrag: torch.Tensor) -> torch.Tensor:
 
 
 # per basis tensor (an entry lives as long as it does): the mel bank and
-# the geometry it was packed for, the constant chunks and the fold table
+# the geometry it was packed for, the route, the constant chunks and the
+# fold table
 _packed = WeakIdKeyDictionary()
 
 
 def _constants(cs, fb, rows, nb, hop):
+    """``(folded, chunks, fold table)``: the route is chosen here, once
+    per basis, by the window's shape."""
     key = (tuple(rows), nb, hop)
     hit = _packed.get(cs)
     if hit is None or hit[0] is not fb or hit[1] != key:
-        hit = _packed[cs] = (fb, key,
-                             chunk_stream(*pack_constants(cs, fb, rows, nb)),
-                             fold_table(cs, rows, hop))
+        folded = symmetric(cs, rows)
+        hit = _packed[cs] = (
+            fb, key, folded,
+            chunk_stream(*pack_constants(cs, fb, rows, nb, folded)),
+            fold_table(cs, rows, hop, folded))
     return hit[2:]
 
 
@@ -243,7 +303,7 @@ def _launch(padded: torch.Tensor, cs: torch.Tensor, fb: torch.Tensor,
         raise ValueError(f"basis has {two_k} columns, expected 2*{K}")
     if n_mels > lib.mel_frontend_max_mels():
         raise ValueError(f"n_mels {n_mels} > {lib.mel_frontend_max_mels()}")
-    lo, span, count = fold_rows(n_fft, rows)
+    _rows(n_fft, rows)
     if Tp < n_fft:
         raise ValueError(f"padded wave of {Tp} samples < n_fft {n_fft}")
     for name, t in (("wave", padded), ("basis", cs), ("mel bank", fb)):
@@ -251,8 +311,9 @@ def _launch(padded: torch.Tensor, cs: torch.Tensor, fb: torch.Tensor,
                 or t.device != padded.device:
             raise ValueError(f"{name} must be contiguous float32 on "
                              f"{padded.device}")
-    chunks, fold = _constants(cs, fb, rows, lib.mel_frontend_bins_per_block(),
-                              hop)
+    folded, chunks, fold = _constants(
+        cs, fb, rows, lib.mel_frontend_bins_per_block(), hop)
+    lo, span, count = fold_rows(n_fft, rows, folded)
     if chunks.shape[-1] != lib.mel_frontend_chunk_floats():
         raise ValueError(f"chunks of {chunks.shape[-1]} floats, the kernel "
                          f"takes {lib.mel_frontend_chunk_floats()}")
@@ -280,12 +341,14 @@ def mel_frontend(padded: torch.Tensor, cs: torch.Tensor, fb: torch.Tensor,
     must be zero. CUDA tensors run the hand-written kernel; CPU tensors
     the plain version. There is no fallback between the two.
 
-    The kernel folds the DFT about ``n_fft/2``, so on a CUDA tensor it
-    takes only a window symmetric about ``n_fft/2`` and ``K = n_fft/2 + 1``
-    bins, and raises ``ValueError`` on anything else. Every even
-    ``win_length`` centred in the frame is symmetric; an odd one (441 at
-    22.05 kHz with a 20 ms window) is symmetric about ``n_fft/2 - 1/2``
-    and is refused. The plain version on a CPU tensor takes any basis."""
+    On a CUDA tensor the kernel needs ``K = n_fft/2 + 1`` bins and at most
+    128 mels, and raises ``ValueError`` on anything else. It folds the
+    DFT about ``n_fft/2`` where the window is symmetric about it (every
+    even ``win_length`` centred in the frame) and takes the unfolded
+    route, twice the depth, for any other window (an odd one, such as
+    201 at 8 kHz or 441 at 22.05 kHz, is symmetric about
+    ``n_fft/2 - 1/2``). The plain version on a CPU tensor takes any
+    basis."""
     if padded.is_cuda:
         return _launch(padded, cs, fb, hop, rows)
     if padded.device.type == "cpu":

@@ -9,19 +9,32 @@
   there.
 - :func:`make_serving_app` / :func:`serve` — a ``ThreadingHTTPServer``::
 
-      GET  /healthz  -> {"status": "ok", model, num_eval, ...}
-      POST /embed    -> {"embedding": [D floats], "dim": D}
-      POST /score    -> {"score": s}   (mean |cos| over all crop pairs)
+      GET  /healthz   -> {"status": "ok", model, num_eval, ...}
+      POST /embed     -> {"embedding": [D floats], "dim": D}
+      POST /score     -> {"score": s}   (mean |cos| over all crop pairs)
+      POST /identify  -> {"speaker": name, "score": s[, "candidates"]}
+      POST /enroll    -> {"speaker": name, "index": i, "enrolled": n}
+      POST /unenroll  -> {"speaker": name, "enrolled": n}
 
   Audio comes as ``{"path": server-local WAV}`` or
   ``{"pcm": [...], "sample_rate": N}``; ``/score`` takes ``enroll`` and
-  ``test`` objects. ``/identify``, ``/enroll`` and ``/unenroll`` (the
-  speaker banks) are not ported yet and answer 501.
+  ``test`` objects.
+- The speaker banks behind ``/identify``, ``/enroll`` and ``/unenroll``:
+  the ``embeds.npy``/``classes.npy`` that ``--prepare`` with ``prepare:
+  embed`` writes, loaded on the first request. ``serving.device_bank``
+  (``auto``, ``true``, ``false``) puts them in a
+  :class:`~speakerverification_tpu_torch.evaluation.bank.SpeakerBank` on
+  the engine's device (``auto``: from ``AUTO_DEVICE_BANK_MIN_ROWS``
+  rows); otherwise ``/identify`` scans them on the host. Identifies share
+  a readers-writer lock, enrollments take it alone, and with
+  ``serving.persist_enroll`` (default true) every change is written back
+  to the artifacts, each file to a temporary name first.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import queue
 import threading
 import time
@@ -33,10 +46,52 @@ import numpy as np
 import torch
 
 from speakerverification_tpu_torch.data.audio import AudioSpec, load_wav
+from speakerverification_tpu_torch.evaluation.bank import (
+    AUTO_DEVICE_BANK_MIN_ROWS,
+    SpeakerBank,
+)
 
 __all__ = ["DynamicBatcher", "serve", "make_serving_app", "warm_up"]
 
-_NOT_PORTED = ("/identify", "/enroll", "/unenroll")
+
+class _RWLock:
+    """Readers-writer lock of the serving banks: identifies (readers)
+    run together, enrollments and the first load (writers) alone. First
+    reader locks, last reader unlocks; writers can starve under
+    saturating reads, the right trade for a read-mostly service."""
+
+    def __init__(self):
+        self._counter = threading.Lock()
+        self._exclusive = threading.Lock()
+        self._readers = 0
+
+    class _Ctx:
+        def __init__(self, acq, rel):
+            self._acq, self._rel = acq, rel
+
+        def __enter__(self):
+            self._acq()
+
+        def __exit__(self, *exc):
+            self._rel()
+
+    def _acq_read(self):
+        with self._counter:
+            self._readers += 1
+            if self._readers == 1:
+                self._exclusive.acquire()
+
+    def _rel_read(self):
+        with self._counter:
+            self._readers -= 1
+            if self._readers == 0:
+                self._exclusive.release()
+
+    def read(self):
+        return self._Ctx(self._acq_read, self._rel_read)
+
+    def write(self):
+        return self._Ctx(self._exclusive.acquire, self._exclusive.release)
 
 
 class DynamicBatcher:
@@ -196,6 +251,156 @@ def make_serving_app(engine, hparams: Mapping,
                              samples, max_wait_ms, transport=transport)
     model_name = (h.get("model") or {}).get("name", "?")
 
+    device_bank_cfg = serving.get("device_bank", "auto")
+    bank_devices = int(serving.get("bank_devices", 1))
+    persist_enroll = bool(serving.get("persist_enroll", True))
+    banks = {"embeds": None, "classes": None, "device": None}
+    banks_lock = _RWLock()
+
+    def _build_device_bank(embeds, classes):
+        if bank_devices > 1:
+            # the bank was sized for that many cards: refuse, not shrink
+            raise ValueError(
+                f"serving.bank_devices={bank_devices}: a bank sharded over "
+                "several GPUs (ShardedSpeakerBank) comes with the port's "
+                "multi-GPU slice; this server keeps one bank on one device")
+        return SpeakerBank(embeds, classes, device=engine.device)
+
+    def _load_banks():
+        # double-checked: banks["embeds"] is assigned last under the
+        # write lock, so a non-None read proves the load completed
+        if banks["embeds"] is not None:
+            return
+        with banks_lock.write():
+            if banks["embeds"] is None:
+                mdir = engine.dirs["model"]
+                epath, cpath = mdir / "embeds.npy", mdir / "classes.npy"
+                if not (epath.exists() and cpath.exists()):
+                    raise FileNotFoundError(
+                        "identification needs embeds.npy/classes.npy — run "
+                        "--do_infer --prepare with prepare: embed first")
+                embeds = np.load(epath)
+                classes = np.load(cpath, allow_pickle=True).item()
+                use_dev = (len(embeds) >= AUTO_DEVICE_BANK_MIN_ROWS
+                           if device_bank_cfg == "auto"
+                           else bool(device_bank_cfg))
+                if use_dev:
+                    banks["device"] = _build_device_bank(embeds, classes)
+                banks["classes"] = classes
+                banks["embeds"] = embeds         # last: the load is done
+
+    def _persist_banks():
+        """Write both artifacts to temporary files, then rename both: a
+        crash never leaves a truncated bank or two generations. The
+        caller holds the write lock."""
+        if not persist_enroll:
+            return
+        mdir = engine.dirs["model"]
+        pairs = []
+        for fname, arr in (("embeds.npy", banks["embeds"]),
+                           ("classes.npy", banks["classes"])):
+            tmp = mdir / fname.replace(".npy", ".tmp.npy")
+            np.save(tmp, arr, allow_pickle=True)
+            pairs.append((tmp, mdir / fname))
+        for tmp, dst in pairs:
+            os.replace(tmp, dst)
+
+    def _identify(obj):
+        # k is checked before the embedding takes a batcher slot
+        k = int(obj.get("k", 1))
+        if not 1 <= k <= 100:
+            raise ValueError("k must be in [1, 100]")
+        crops = _decode_audio_spec(obj, spec, num_eval)
+        utt = _utt_embedding(batcher.submit(crops).result())
+        _load_banks()
+        # k on the JAX server's grid (it compiles one program per k),
+        # trimmed back below
+        k_eff = next(b for b in (1, 5, 10, 50, 100) if k <= b)
+        with banks_lock.read():
+            embeds, classes = banks["embeds"], banks["classes"]
+            dev_bank = banks["device"]
+            if len(embeds) == 0:
+                raise ValueError("no speakers enrolled")
+            if dev_bank is not None:
+                s, i = dev_bank.identify(utt, k=k_eff)
+                cand = [(str(dev_bank.name(int(ii))), float(ss))
+                        for ss, ii in zip(s[0][:k], i[0][:k])]
+            else:
+                # nearest by distance, score 1 - d^2/2: on normalized
+                # vectors the cosine the device bank ranks by
+                d = np.linalg.norm(embeds - utt[None, :], axis=1)
+                kk = min(k, len(d))
+                part = np.argpartition(d, kk - 1)[:kk]
+                order = part[np.argsort(d[part])]
+                cand = [(str(classes[int(b)]), float(1.0 - d[b] ** 2 / 2.0))
+                        for b in order]
+        payload = {"speaker": cand[0][0], "score": cand[0][1]}
+        if k > 1:
+            payload["candidates"] = [{"speaker": nm, "score": sc}
+                                     for nm, sc in cand]
+        return payload
+
+    def _enroll(obj):
+        name = obj.get("name")
+        if not isinstance(name, str) or not name:
+            raise ValueError("/enroll needs a 'name' string")
+        crops = _decode_audio_spec(obj, spec, num_eval)
+        utt = _utt_embedding(batcher.submit(crops).result())
+        _load_banks()
+        with banks_lock.write():
+            new_idx = len(banks["embeds"])
+            if banks["device"] is not None:
+                # device first: if it fails, the host arrays are untouched
+                # (add also writes the label into the shared classes dict)
+                banks["device"].add(utt, [name])
+            banks["classes"][new_idx] = name
+            banks["embeds"] = np.concatenate([banks["embeds"],
+                                              utt[None, :]])
+            if (banks["device"] is None and device_bank_cfg == "auto"
+                    and len(banks["embeds"]) >= AUTO_DEVICE_BANK_MIN_ROWS):
+                # live growth crossed the threshold: promote now
+                banks["device"] = _build_device_bank(banks["embeds"],
+                                                     banks["classes"])
+            _persist_banks()
+        return {"speaker": name, "index": new_idx, "enrolled": new_idx + 1}
+
+    def _unenroll(obj):
+        _load_banks()
+        with banks_lock.write():
+            if "index" in obj:
+                idx = int(obj["index"])
+            else:
+                nm = obj.get("name")
+                hits = [i for i, v in banks["classes"].items() if v == nm]
+                if len(hits) != 1:
+                    raise ValueError(f"name {nm!r} matches {len(hits)} "
+                                     "speakers; pass 'index'")
+                idx = hits[0]
+            n = len(banks["embeds"])
+            if not 0 <= idx < n:
+                raise ValueError(f"index {idx} not in bank of {n}")
+            removed = banks["classes"][idx]
+            last = n - 1
+            if banks["device"] is not None:
+                # the device bank's labels are banks["classes"] (the same
+                # dict): remove() swaps the labels once for both
+                if banks["device"]._labels is not banks["classes"]:
+                    raise RuntimeError("device bank labels lost aliasing "
+                                       "with the served classes")
+                banks["device"].remove(idx)
+            else:
+                if idx != last:
+                    banks["classes"][idx] = banks["classes"][last]
+                banks["classes"].pop(last, None)
+            if idx != last:
+                banks["embeds"][idx] = banks["embeds"][last]
+            banks["embeds"] = banks["embeds"][:last]
+            _persist_banks()
+        return {"speaker": str(removed), "enrolled": last}
+
+    bank_routes = {"/identify": _identify, "/enroll": _enroll,
+                   "/unenroll": _unenroll}
+
     class ServingHandler(BaseHTTPRequestHandler):
         server_version = "svtorch-serving/1.0"
         protocol_version = "HTTP/1.1"
@@ -245,15 +450,14 @@ def make_serving_app(engine, hparams: Mapping,
                         for k in ("enroll", "test")]
                     e1, e2 = (f.result() for f in futs)
                     return self._reply(200, {"score": _pair_cosine(e1, e2)})
-                if self.path in _NOT_PORTED:
-                    return self._reply(501, {
-                        "error": f"{self.path} needs the speaker banks, "
-                                 "which this server does not have yet"})
+                if self.path in bank_routes:
+                    return self._reply(200, bank_routes[self.path](obj))
                 return self._reply(404, {"error": f"unknown path {self.path}"})
             except (KeyError, ValueError, TypeError,
                     FileNotFoundError) as exc:
                 return self._reply(400, {"error": str(exc)})
 
+    ServingHandler.banks = banks          # for inspection and tests
     return ServingHandler, batcher
 
 

@@ -12,6 +12,11 @@ leaves change layout:
 * ``input_norm_*``, ``inorm_*``, ``low_hz``/``band_hz`` and AFMS
   ``alpha`` keep their names.
 
+:func:`params_to_jax` is its inverse: a ``state_dict`` back to flax
+``params``/``batch_stats`` numpy trees, which ``checkpoint.py`` writes
+in the JAX package's msgpack layout. The round trip through both gives
+the ``state_dict`` back bit for bit.
+
 :func:`init_weights_` gives a module random weights from a seeded
 generator (lecun-normal, as flax initializes), for a model served
 without a weights file. :func:`cast_copy` makes the low-precision copy
@@ -29,12 +34,21 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-__all__ = ["params_from_jax", "init_weights_", "cast_copy",
+__all__ = ["params_from_jax", "params_to_jax", "init_weights_", "cast_copy",
            "act_scales_from_jax"]
 
 _SAME_NAME = {"alpha", "low_hz", "band_hz", "inorm_scale", "inorm_bias",
               "input_norm_scale", "input_norm_bias"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _as_numpy(v) -> np.ndarray:
+    """A leaf as numpy; a bf16 tensor (how ``checkpoint.py`` decodes a
+    bfloat16 leaf) widens to fp32 exactly."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu()
+        return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+    return np.asarray(v)
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
@@ -43,7 +57,7 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
         if isinstance(v, Mapping):
             out.update(_flatten(v, prefix + (str(k),)))
         else:
-            out[prefix + (str(k),)] = np.asarray(v)
+            out[prefix + (str(k),)] = _as_numpy(v)
     return out
 
 
@@ -102,6 +116,43 @@ def params_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None,
             raise KeyError(f"state_dict mismatch: missing {missing}, "
                            f"left over {extra}, shape differs {shapes}")
     return out
+
+
+def _nest(tree: dict, key: str, value: np.ndarray) -> None:
+    *scopes, name = key.split(".")
+    for s in scopes:
+        tree = tree.setdefault(s, {})
+    tree[name] = value
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor]) -> tuple[dict, dict]:
+    """A port ``state_dict`` as flax ``(params, batch_stats)`` numpy
+    trees, the inverse of :func:`params_from_jax`: a BatchNorm (a scope
+    with ``running_mean``) gives ``scale``/``bias`` and ``mean``/``var``,
+    a 3-D ``weight`` a conv ``kernel [k, in, out]``, a 2-D one a Dense
+    ``kernel [in, out]``; ``num_batches_tracked`` has no flax leaf."""
+    params: dict = {}
+    stats: dict = {}
+    for key, t in state.items():
+        scope, _, name = key.rpartition(".")
+        arr = t.detach().cpu().numpy()
+        bn = f"{scope}.running_mean" in state
+        if name == "num_batches_tracked":
+            continue
+        if bn and name in ("running_mean", "running_var"):
+            _nest(stats, f"{scope}.{name[len('running_'):]}", arr.copy())
+        elif bn and name == "weight":
+            _nest(params, f"{scope}.scale", arr.copy())
+        elif name == "weight" and arr.ndim == 3:
+            _nest(params, f"{scope}.kernel",
+                  np.ascontiguousarray(arr.transpose(2, 1, 0)))
+        elif name == "weight" and arr.ndim == 2:
+            _nest(params, f"{scope}.kernel", np.ascontiguousarray(arr.T))
+        elif name == "bias" or name in _SAME_NAME:
+            _nest(params, key, arr.copy())
+        else:
+            raise KeyError(f"state_dict entry {key} has no flax counterpart")
+    return params, stats
 
 
 @torch.no_grad()

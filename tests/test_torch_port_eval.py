@@ -174,6 +174,10 @@ def test_cli_eval_writes_one_row_per_trial(ws, tmp_path, capsys):
         seed: 0
         save_folder: {tmp_path}/save
         evaluation_file: {root}/trials.txt
+        verification_file: {root}/trials.txt
+        test_threshold: 0
+        prepare: embed
+        data_folder: {root}/data
         num_eval: 3
         eval_batch_size: 6
         audio_spec: {{sample_rate: {SR}, channels: 1, sentence_len: 0.5,
@@ -190,14 +194,29 @@ def test_cli_eval_writes_one_row_per_trial(ws, tmp_path, capsys):
         "evaluation_results.csv"
     assert len(csv.read_text().strip().splitlines()) == N_TRIALS + 1
     assert "[RESULT] EER" in capsys.readouterr().out
-    for verb in (["--do_infer", "--test"], ["--do_infer", "--prepare"],
-                 ["--do_infer", "--eval", "--predict"], ["--do_train"],
-                 ["--do_export"]):
+    run = tmp_path / "save" / "ECAPA_TDNN" / "AAmSoftmax"
+    assert (run / "config" / "config_frozen.yaml").exists()
+    # the other inference verbs, ported: --test (threshold 0: tuned on the
+    # eval list first), --prepare (the YAML's prepare: embed) and --predict
+    w = ["--initial_model_infer", str(weights)]
+    assert cli_main(["--do_infer", "--test", *args, *w]) == 0
+    assert "precision" in capsys.readouterr().out
+    results = run / "result" / "trials_results.txt"
+    assert len(results.read_text().strip().splitlines()) == N_TRIALS
+    assert cli_main(["--do_infer", "--prepare", *args, *w]) == 0
+    assert np.load(run / "model" / "embeds.npy").shape == (N_SPK, 16)
+    wavs = sorted(str(p) for p in (root / "data").glob("spk*/u0.wav"))
+    assert cli_main(["--do_infer", "--predict", *wavs, *args, *w]) == 0
+    assert capsys.readouterr().out.count("[RESULT] predict: spk") == N_SPK
+    for verb in (["--do_train"], ["--do_export"]):
         assert cli_main([*verb, *args]) == 2
         assert "not ported" in capsys.readouterr().err
-    # --do_infer alone has no verb to run: no silent success
+    # --do_infer alone has no verb to run, --predict no files: no silent
+    # success
     assert cli_main(["--do_infer", *args]) == 2
     assert "needs --eval" in capsys.readouterr().err
+    assert cli_main(["--do_infer", "--eval", "--predict", *args]) == 2
+    assert "at least one audio file" in capsys.readouterr().err
 
 
 def test_prototypical_head_scores_unnormalized_like_jax(tmp_path):

@@ -36,16 +36,59 @@ def test_port_imports_no_jax_and_no_jax_package():
                      "quant", "ops.quant_matmul", "data.loader",
                      "evaluation.metrics", "evaluation.scoring",
                      "evaluation.reports", "evaluation.evaluator",
-                     "cli.main"):
+                     "evaluation.bank", "checkpoint", "cli.main"):
         assert f"speakerverification_tpu_torch.{expected}" in res["modules"]
     loaded = res["loaded"]
-    for banned in ("jax", "flax", "optax"):
+    # the GPU host has neither msgpack, ml_dtypes nor PyYAML: the codec is
+    # the port's own, and the CLI reads YAML lazily
+    for banned in ("jax", "flax", "optax", "msgpack", "ml_dtypes", "yaml"):
         assert not [m for m in loaded
                     if m == banned or m.startswith(banned + ".")], banned
     assert not [m for m in loaded if m == "speakerverification_tpu"
                 or m.startswith("speakerverification_tpu.")]
     # and the prefix check really sees the port's own modules
     assert "speakerverification_tpu_torch.serving" in loaded
+
+
+SMOKE_PROBE = r"""
+import importlib.util, json, sys, tempfile
+from pathlib import Path
+import numpy as np, torch
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+from speakerverification_tpu_torch import checkpoint, inference, serving
+from speakerverification_tpu_torch.evaluation.bank import SpeakerBank
+from speakerverification_tpu_torch.weights import params_from_jax, params_to_jax
+# path D's checkpoint round trip and bank, on the CPU at a small size
+model = torch.nn.Sequential(torch.nn.Conv1d(2, 3, 3), torch.nn.BatchNorm1d(3))
+params, stats = params_to_jax(model.state_dict())
+tree = {"step": np.asarray(1, np.int32), "params": params,
+        "batch_stats": stats,
+        "opt_state": {"0": {}, "1": {"ema": params}},
+        "half": torch.ones(3, dtype=torch.bfloat16)}
+path = Path(tempfile.mkdtemp()) / "best_state.msgpack"
+checkpoint.save_checkpoint(path, tree, {"epoch": 1})
+back = checkpoint.load_checkpoint(path)
+params_from_jax(back["params"], back["batch_stats"], like=model)
+SpeakerBank(np.eye(4, dtype=np.float32), device="cpu").identify(np.ones(4))
+print(json.dumps({"loaded": sorted(sys.modules)}))
+"""
+
+
+def test_chip_smoke_path_imports_no_msgpack_flax_ml_dtypes_or_yaml():
+    """``chip_smoke.py`` and path D's code (the checkpoint codec, the
+    weight bridge, the bank, the server and the engine) import none of
+    what the GPU host lacks: ``msgpack``, ``flax``, ``ml_dtypes``,
+    ``yaml``, and nothing of JAX."""
+    out = subprocess.run([sys.executable, "-c", SMOKE_PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])["loaded"]
+    for banned in ("jax", "flax", "optax", "msgpack", "ml_dtypes", "yaml",
+                   "speakerverification_tpu"):
+        assert not [m for m in loaded
+                    if m == banned or m.startswith(banned + ".")], banned
 
 
 def test_chip_smoke_fails_without_a_gpu_and_alone(tmp_path):

@@ -110,6 +110,36 @@ def test_mel_kernel_matches_plain(cuda, name, n, samples, n_mels):
     assert _rel_err(got, ref) <= 1e-5
 
 
+# odd windows take the kernel's unfolded route: (sample rate, win, hop,
+# utterances, samples)
+MEL_ODD_CASES = [
+    (8000, 201, 80, 160, 16000),     # chip_smoke's shape
+    (8000, 201, 80, 5, 5127),
+    (22050, 441, 220, 3, 22050),
+    (16000, 401, 160, 1, 3000),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sr,win,hop,n,samples", MEL_ODD_CASES)
+def test_mel_kernel_unfolded_route_matches_plain(cuda, sr, win, hop, n,
+                                                 samples):
+    cfg = FrontendConfig(sample_rate=sr, win_length=win, hop_length=hop)
+    g = torch.Generator().manual_seed(samples + n)
+    wave = (0.3 * torch.randn(n, samples, generator=g)).to(cuda)
+    padded = reflect_pad(pre_emphasis(wave), cfg.n_fft // 2).contiguous()
+    cs, fb = mel_constants(cfg, cuda)
+    assert not mf.symmetric(cs, window_rows(cfg))
+    before = mf.launches
+    got = mf.mel_frontend(padded, cs, fb, cfg.hop_length, window_rows(cfg))
+    torch.cuda.synchronize()
+    assert mf.launches == before + 1
+    ref = mf.mel_frontend_plain(padded, cs, fb, cfg.hop_length,
+                                (0, cfg.n_fft))
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    assert _rel_err(got, ref) <= 1e-5
+
+
 @pytest.mark.cuda
 def test_mel_kernel_rejects_too_many_mels(cuda):
     cfg, padded, cs, fb = _mel_inputs("8k", 2, 2000, 136, cuda)

@@ -81,17 +81,18 @@ def _product(a, b_hi, b_lo, passes):
     return a_hi @ b_lo + a_lo @ b_hi + a_hi @ b_hi
 
 
-def _emulate(padded, cs, fb, hop, rows, passes):
-    """The kernel's arithmetic on its packed constants: the folded DFT
-    (u @ P, v @ Q), power, the Nyquist bin's fp32 sum, the mel product."""
+def _emulate(padded, cs, fb, hop, rows, passes, folded=True):
+    """The kernel's arithmetic on its packed constants: the folded (or,
+    on the unfolded route, plain) DFT (u @ P, v @ Q), power, the Nyquist
+    bin's fp32 sum, the mel product."""
     n_fft = cs.shape[0]
     n_mels = fb.shape[1]
-    lo, span, count = mf.fold_rows(n_fft, rows)
-    basis, mfrag = mf.pack_constants(cs, fb, rows, NB)
+    lo, span, count = mf.fold_rows(n_fft, rows, folded)
+    basis, mfrag = mf.pack_constants(cs, fb, rows, NB, folded)
     ncb, nkc = basis.shape[:2]
     b_hi, b_lo = _unpack_tiles(basis)                 # [P/Q, 16 nkc, 64 ncb]
     m_hi, m_lo = _unpack(mfrag)
-    table = mf.fold_table(cs, rows, hop)
+    table = mf.fold_table(cs, rows, hop, folded)
     frames = padded.unfold(-1, n_fft, hop)[..., lo:lo + span]
     # a span column counts SPAN_SKEW empty slots after every hop samples
     col = table[:, :2].long()
@@ -119,11 +120,11 @@ def _inputs(cfg, amplitude, seed=0, n=5, seconds=1.0):
     return padded, cs, fb
 
 
-def _rel_err(cfg, amplitude, passes):
+def _rel_err(cfg, amplitude, passes, folded=True):
     padded, cs, fb = _inputs(cfg, amplitude)
     rows = window_rows(cfg)
     ref = mf.mel_frontend_plain(padded, cs, fb, cfg.hop_length, rows)
-    got = _emulate(padded, cs, fb, cfg.hop_length, rows, passes)
+    got = _emulate(padded, cs, fb, cfg.hop_length, rows, passes, folded)
     assert got.shape == ref.shape
     return ((got - ref).abs().max() / ref.abs().max()).item()
 
@@ -237,14 +238,22 @@ def test_chunk_stream_puts_the_mel_bank_after_each_blocks_basis(n_mels):
 
 
 def test_packed_constants_reject_what_the_kernel_cannot_fold():
+    """The Nyquist layout is refused on either route; a lopsided basis
+    is refused by the fold, and the wrapper's route check sends it to
+    the unfolded route, which packs it."""
     cs, fb = mel_constants(CONFIGS["8k"], "cpu")
     rows = window_rows(CONFIGS["8k"])
     with pytest.raises(ValueError, match="Nyquist"):
         mf.pack_constants(cs[:, 1:-1], fb[1:], rows, NB)
+    with pytest.raises(ValueError, match="Nyquist"):
+        mf.pack_constants(cs[:, 1:-1], fb[1:], rows, NB, folded=False)
     lopsided = cs.clone()
     lopsided[200] *= 1.01
     with pytest.raises(ValueError, match="symmetric"):
         mf.pack_constants(lopsided, fb, rows, NB)
+    assert mf.symmetric(cs, rows) and not mf.symmetric(lopsided, rows)
+    basis, _ = mf.pack_constants(lopsided, fb, rows, NB, folded=False)
+    assert basis.shape[:2] == (4, 13)       # 200 rows: 13 chunks of 16
 
 
 @pytest.mark.parametrize("amplitude", [0.1, 0.3])
@@ -262,13 +271,41 @@ def test_one_tf32_product_fails_the_tolerance(name, amplitude):
 @pytest.mark.parametrize("win_length", [441, 401])
 def test_odd_windows_are_refused_by_the_kernels_fold(win_length):
     """A periodic window of odd length is symmetric about n_fft/2 - 1/2,
-    not n_fft/2: the kernel's fold cannot take it, and its constants are
-    refused before any launch (the plain version still takes it)."""
+    not n_fft/2: the kernel's fold cannot take it, so its constants are
+    refused by the fold, and the route check sends such a window to the
+    unfolded route (the plain version takes it too)."""
     cfg = FrontendConfig(sample_rate=22050, win_length=win_length,
                          hop_length=220)
     cs, fb = mel_constants(cfg, "cpu")
     with pytest.raises(ValueError, match="symmetric"):
         mf.pack_constants(cs, fb, window_rows(cfg), NB)
+    assert not mf.symmetric(cs, window_rows(cfg))
+    assert mf.fold_rows(cfg.n_fft, window_rows(cfg), folded=False)[2] == \
+        -(-win_length // 8) * 8
     padded, _, _ = _inputs(cfg, 0.1, n=2, seconds=0.1)
     out = mf.mel_frontend(padded, cs, fb, cfg.hop_length, window_rows(cfg))
     assert out.shape == (2, 11, cfg.n_mels) and torch.isfinite(out).all()
+
+
+ODD = {
+    "8k w201": FrontendConfig(win_length=201),
+    "22k w441": FrontendConfig(sample_rate=22050, win_length=441,
+                               hop_length=220),
+}
+
+
+@pytest.mark.parametrize("amplitude", [0.1, 0.3])
+@pytest.mark.parametrize("name", sorted(ODD))
+def test_unfolded_route_meets_the_fp32_tolerance(name, amplitude):
+    """The unfolded route (odd windows): the kernel's arithmetic on its
+    unfolded constants is within the kernel's tolerance, and one TF32
+    pass is not."""
+    assert _rel_err(ODD[name], amplitude, passes=3, folded=False) <= TOL
+    assert _rel_err(ODD[name], amplitude, passes=1, folded=False) > 10 * TOL
+
+
+@pytest.mark.parametrize("name", ["8k", "16k"])
+def test_unfolded_route_takes_even_windows_too(name):
+    """The unfolded constants give the DFT of any window: on an even one
+    the two routes agree within the tolerance."""
+    assert _rel_err(CONFIGS[name], 0.3, passes=3, folded=False) <= TOL

@@ -130,8 +130,9 @@ def _post(port, path, obj):
         conn.close()
 
 
-def test_serving_app_embed_and_score(pair):
+def test_serving_app_embed_and_score(pair, tmp_path):
     h, jax_embed, path = pair.h, pair.jax_embed, pair.path
+    h = {**h, "save_folder": str(tmp_path / "save")}
     engine = InferenceEngine(h, weights=str(path), device="cpu")
     handler, batcher = tserving.make_serving_app(engine, h)
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), handler)
@@ -165,8 +166,10 @@ def test_serving_app_embed_and_score(pair):
         assert status == 200
         ref = jserving._pair_cosine(jax_crops(pcm[0]), jax_crops(pcm[1]))
         assert out["score"] == pytest.approx(ref, abs=TOL)
+        # no --prepare artifacts yet: the bank routes answer 400 and name
+        # them (tests/test_torch_port_bank.py drives the banks)
         status, out = _post(port, "/identify", {"pcm": pcm[0].tolist()})
-        assert status == 501
+        assert status == 400 and "embeds.npy" in out["error"]
         status, out = _post(port, "/embed", {"pcm": [0.1], "sample_rate": 16000})
         assert status == 400
     finally:
@@ -276,9 +279,18 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
         tserving.serve(_hparams(), port=0)
     with pytest.raises(RuntimeError, match="CUDA"):
         inference(_hparams(evaluation_file="unused.txt"), eval_=True)
+    for verb in ({"prepare": True}, {"test": True}, {"predict": ["a.wav"]}):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            inference(_hparams(save_folder=str(tmp_path / "save")), **verb)
+    from speakerverification_tpu_torch.evaluation.bank import SpeakerBank
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SpeakerBank(np.eye(3, dtype=np.float32))
     cfg = tmp_path / "config.yaml"
-    cfg.write_text(json.dumps(_hparams()))          # JSON is YAML
-    for verb in ("--do_infer --eval", "--do_serve"):
+    # JSON is YAML; the CLI freezes the config into the run's directories
+    cfg.write_text(json.dumps(_hparams(save_folder=str(tmp_path / "save"))))
+    for verb in ("--do_infer --eval", "--do_infer --prepare",
+                 "--do_infer --test", "--do_infer --predict a.wav",
+                 "--do_serve"):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli_main([*verb.split(), "--config", str(cfg), "--quant", "int8"])
 
