@@ -23,7 +23,14 @@ Phases, each of which fails the run:
      selection, soup, EMA), through ``inference()``'s verbs (prepare embed
      and cohorts, eval and test with S-norm, predict), the HTTP bank routes
      (``/identify``, ``/enroll``, ``/unenroll``) with the bank on the card,
-     and a bank of 1,000,000 rows x 512 in fp32 and bf16.
+     and a bank of 1,000,000 rows x 512 in fp32 and bf16;
+  8. path E: training the default stack at full width (Raw3_ECAPA +
+     ARmSoftmax over 13,103 classes + AdaBelief): E1 three train steps on
+     the card against the CPU's, each from the same state; E2 the step at
+     the full batch (64 crops of 2 s) in fp32, bf16 and with
+     accumulate_steps 2, timed and profiled; E3 learning on one fixed
+     batch; E4 ``--do_train`` through the CLI on a synthetic manifest,
+     then ``--do_infer --eval`` of the trained checkpoint.
 Every path is compared with the same model's plain path on the CPU.
 
 The script imports nothing of the JAX package. hparams are built in code
@@ -67,6 +74,25 @@ ECAPA_TDNN_HPARAMS = {
     "model": {"name": "ECAPA_TDNN", "feature_type": "melspectrogram",
               "nOut": 192},
     "num_eval": 10,
+}
+# the training keys of yaml/raw3_ecapa.yaml (path E; the same test holds
+# them against the file)
+RAW3_TRAIN_HPARAMS = {
+    **RAW3_ECAPA_HPARAMS,
+    "number_of_epochs": 250, "batch_size": 32, "lr": 0.003,
+    "base_lr": 1e-8, "max_lr": 0.003, "step_size": 10, "shuffle": False,
+    "random_chunk": True, "nClasses": 13103,
+    "dataloader_options": {"batch_size": 32, "shuffle": False,
+                           "num_workers": 8, "max_seg_per_spk": 1000,
+                           "nPerSpeaker": 2, "split_ratio": -1},
+    "criterion": {"name": "ARmSoftmax", "margin": 0.2, "scale": 30},
+    "optimizer": {"name": "AdaBelief", "weight_decay": 0.00002,
+                  "lr_decay": 0.95},
+    "callbacks": {"name": "cosine_annealinglr_pt", "base_lr": 1e-8,
+                  "max_lr": 0.003},
+    "early_stopping": False, "es_patience": 15, "augment": False,
+    "save_model_last": True, "ckpt_interval_minutes": -1,
+    "test_interval": -1,
 }
 BATCH_UTTS = 8          # the serving default (serving.batch_utts)
 
@@ -149,6 +175,8 @@ def check_mel_kernel(dev, gen):
                                                 hop_length=160,
                                                 fmin=20.0, fmax=7600.0),
                8 * 10, 32000),
+              # path E's train step: 32 speakers x 2 crops of 2 s
+              ("raw3_ecapa 8k train", FrontendConfig(), 32 * 2, 16000),
               # an odd window (its centre is n_fft/2 - 1/2): the kernel's
               # unfolded route; no configuration of the repo uses one
               ("raw3_ecapa 8k win201", FrontendConfig(win_length=201),
@@ -1514,9 +1542,11 @@ def throughput(label: str, engine, waves, num_eval: int, card: str) -> None:
         f"{crops / num_eval / ms * 1e3:.1f} utterances/s ({card})")
 
 
-def profile(label: str, engine, waves, fn=None, top: int = 12) -> None:
+def profile(label: str, engine, waves, fn=None, top: int = 12,
+            host: bool = False) -> None:
     """Device time by kernel over three forwards (torch.profiler), or
-    over three calls of ``fn``."""
+    over three calls of ``fn``; with ``host``, also the host's: aten
+    operators per call and those with the most self time."""
     import torch
     from torch.profiler import ProfilerActivity, profile as prof
     fn = fn or (lambda: engine.embed_fn(waves))
@@ -1547,6 +1577,17 @@ def profile(label: str, engine, waves, fn=None, top: int = 12) -> None:
         log(f"[{label} profile] {dev_us(e) / 3 / 1e3:8.3f} ms/call "
             f"{100 * dev_us(e) / 3 / 1e3 / wall:5.1f} %  {e.count // 3:4d}x  "
             f"{e.key[:90]}")
+    if host:
+        ops = [e for e in p.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.key.startswith("aten::")]
+        calls = sum(e.count for e in ops) / 3
+        log(f"[{label} profile] host: {calls:.0f} aten operator calls per "
+            f"call ({wall / max(calls, 1) * 1e3:.1f} us of wall each)")
+        for e in sorted(ops, key=lambda e: e.self_cpu_time_total,
+                        reverse=True)[:6]:
+            log(f"[{label} profile] host {e.self_cpu_time_total / 3 / 1e3:8.3f}"
+                f" ms/call self {e.count // 3:5d}x  {e.key}")
     # the port's kernels by their function names in csrc/
     for name, tag in (("K1", "mel_kernel"), ("K2", "cascade_kernel"),
                       ("K3", "qmm_")):
@@ -1556,6 +1597,430 @@ def profile(label: str, engine, waves, fn=None, top: int = 12) -> None:
             log(f"[{label} profile] {name}: {ms:.3f} ms/call "
                 f"({100 * ms / wall:.1f} %) over "
                 f"{sum(e.count for e in mine) // 3} launches per forward")
+
+
+# ----------------------------------------------------------------------
+# path E: training the default stack
+# ----------------------------------------------------------------------
+# parameters whose gradient is zero by construction (a softmax over time
+# ignores a per-channel shift; the instance norm's scale and offset are
+# undone by the log-magnitude's mean over time and the band-pass sinc):
+# both devices move them on rounding noise alone, so update cosines leave
+# them out
+E_DEVICE = "cuda"       # tests/test_torch_port_train_smoke.py sets "cpu"
+ZERO_GRAD = ("AttentiveStatisticsPooling_0.Conv1d_0.Conv_0.bias",
+             "raw_branch.Conv_2.bias", "raw_branch.BatchNorm_0.bias",
+             "raw_branch.inorm_scale", "raw_branch.inorm_bias")
+
+
+def train_state(h, device, seed: int = 7):
+    """The default stack with its head and optimizer on ``device``, its
+    weights drawn from ``seed`` as flax draws them."""
+    from speakerverification_tpu_torch.builder import (
+        encoder_from_hparams,
+        optimizer_from_hparams,
+    )
+    from speakerverification_tpu_torch.training.state import (
+        create_train_state,
+    )
+    from speakerverification_tpu_torch.training.train_step import (
+        make_train_step,
+    )
+    from speakerverification_tpu_torch.builder import (
+        compute_dtype_from_hparams,
+    )
+    model = encoder_from_hparams(h, with_loss=True).to(device)
+    tx = optimizer_from_hparams(h)
+    state = create_train_state(model, tx, seed)
+    step = make_train_step(model, tx,
+                           compute_dtype=compute_dtype_from_hparams(h),
+                           accum_steps=int(h.get("accumulate_steps", 1)))
+    return state, step
+
+
+def _to(tree, device):
+    """An optimizer state's tensors copied to ``device``."""
+    import torch
+    from speakerverification_tpu_torch.optim import ParamTree
+    if isinstance(tree, ParamTree):
+        return ParamTree({k: v.detach().to(device, copy=True)
+                          for k, v in tree.items()})
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, device) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device, copy=True)
+    return tree
+
+
+def copy_state(src, dst) -> None:
+    """``dst`` (on its own device) set to ``src``: weights, statistics,
+    optimizer state and step."""
+    import torch
+    device = next(dst.model.parameters()).device
+    with torch.no_grad():
+        dst.model.load_state_dict(src.model.state_dict())
+    dst.opt_state = _to(src.opt_state, device)
+    dst.step = src.step
+
+
+def seeded_batch(seed: int, n_spk: int, n_per: int, h: dict):
+    """``[n_spk, n_per, T]`` waves of the config's crop length and
+    ``n_spk`` distinct labels."""
+    import numpy as np
+    spec, n_classes = h["audio_spec"], h["nClasses"]
+    samples = int(spec["sentence_len"] * spec["sample_rate"])
+    rng = np.random.default_rng(seed)
+    wave = (0.1 * rng.normal(0, 1, (n_spk, n_per, samples))).astype(
+        np.float32)
+    label = rng.permutation(n_classes)[:n_spk].astype(np.int64)
+    return wave, label
+
+
+def update_cosine(after, before, ref_after) -> tuple[float, float, str]:
+    """Cosine between two updates over all parameters but ``ZERO_GRAD``,
+    and the lowest per-tensor cosine with its name."""
+    import torch
+    keep = [k for k in before if not k.endswith(ZERO_GRAD)]
+    a = torch.cat([(after[k].detach().cpu() - before[k]).double().ravel()
+                   for k in keep])
+    b = torch.cat([(ref_after[k].detach().cpu() - before[k]).double().ravel()
+                   for k in keep])
+    worst, name = 2.0, ""
+    for k in keep:
+        x = (after[k].detach().cpu() - before[k]).double().ravel()
+        y = (ref_after[k].detach().cpu() - before[k]).double().ravel()
+        c = float(x @ y / max(float(x.norm() * y.norm()), 1e-300))
+        if c < worst:
+            worst, name = c, k
+    return float(a @ b / (a.norm() * b.norm())), worst, name
+
+
+def loss_grads(state, wave, label) -> dict:
+    """The gradient of the training loss at ``state`` (the BatchNorm
+    statistics the forward updates are put back)."""
+    import torch
+    saved = [s.clone() for s in state.batch_stats.values()]
+    state.model.train()
+    loss, _ = state.model(wave, label)
+    names = list(state.params)
+    grads = torch.autograd.grad(loss, [state.params[k] for k in names],
+                                allow_unused=True)
+    with torch.no_grad():
+        for s, s0 in zip(state.batch_stats.values(), saved):
+            s.copy_(s0)
+    return {k: torch.zeros_like(state.params[k]) if g is None else g
+            for k, g in zip(names, grads)}
+
+
+def branch_cosines(got: dict, want: dict) -> dict:
+    """Cosine of two gradient trees over each branch's parameters (all
+    but ``ZERO_GRAD``): the ECAPA half (fed by K1), the raw branch, the
+    loss head."""
+    out = {}
+    for branch in ("backbone.ecapa.", "backbone.raw_branch.", "loss."):
+        keys = [k for k in want if k.startswith(branch)]
+        if not keys:        # a one-branch model (the CPU rehearsal's)
+            keys = [k for k in want if not k.startswith("loss.")]
+            branch = "backbone.ecapa."
+        zeros = {k: 0 * want[k].detach().cpu() for k in keys}
+        cos, worst, name = update_cosine({k: got[k] for k in keys}, zeros,
+                                         {k: want[k] for k in keys})
+        out[branch.rstrip(".")] = {"cos": cos, "lowest": worst,
+                                   "lowest_at": name}
+    return out
+
+
+def path_e1(h) -> dict:
+    """Three fp32 train steps of the default stack (4 speakers x 2 crops of
+    2 s) on the card and on the CPU's plain path, each from the same state
+    (the CPU's, copied to the card before the step); first the gradient
+    of the loss at the initial state on both."""
+    import torch
+    lr = h["lr"]
+    cpu, cpu_step = train_state(h, "cpu")
+    card, card_step = train_state(h, E_DEVICE)
+    copy_state(cpu, card)
+    wave, label = seeded_batch(10, 4, 2, h)
+    reset_counts()
+    g_card = loss_grads(card, torch.from_numpy(wave).to(E_DEVICE),
+                        torch.from_numpy(label).to(E_DEVICE))
+    counts = read_counts()
+    g_cpu = loss_grads(cpu, torch.from_numpy(wave), torch.from_numpy(label))
+    grad = branch_cosines(g_card, g_cpu)
+    log(f"[E1 gradient] card vs CPU at the initial state, by branch "
+        f"(bars: ecapa 0.999, raw_branch 0.95, loss 0.999): "
+        + json.dumps(grad))
+    rows = []
+    for i in range(3):
+        wave, label = seeded_batch(10 + i, 4, 2, h)
+        copy_state(cpu, card)
+        before = {k: p.detach().clone() for k, p in cpu.params.items()}
+        reset_counts()
+        card, mc = card_step(card, torch.from_numpy(wave).to(E_DEVICE),
+                             torch.from_numpy(label).to(E_DEVICE), lr)
+        torch.cuda.synchronize()
+        for k, v in read_counts().items():
+            counts[k] += v
+        cpu, mp = cpu_step(cpu, torch.from_numpy(wave),
+                           torch.from_numpy(label), lr)
+        lc, lp = float(mc["loss"]), float(mp["loss"])
+        stats = max(float((card.batch_stats[k].cpu() - s).abs().max()
+                          / s.abs().max()) for k, s in cpu.batch_stats.items())
+        cos, worst, name = update_cosine(card.params, before, cpu.params)
+        row = {"loss_card": lc, "loss_cpu": lp,
+               "loss_rel": abs(lc - lp) / abs(lp),
+               "prec1_card": float(mc["prec1"]),
+               "prec1_cpu": float(mp["prec1"]), "stats_rel": stats,
+               "update_cos": cos, "worst_tensor_cos": worst,
+               "worst_tensor": name}
+        log(f"[E1 step {i}] " + json.dumps(row))
+        rows.append(row)
+    # the forward and backward on the card against the CPU's: the
+    # gradients, branch by branch. The ECAPA half (K1's consumer) is
+    # well conditioned; the raw branch's train-mode BatchNorms over
+    # log-sinc features turn rounding (cuDNN's sums against the CPU's)
+    # into percent-level gradient differences, in its sinc parameters
+    # most. The steps' bars are those the CPU tests hold the port and the
+    # JAX package to (tests/test_torch_port_train_raw3.py): AdaBelief's
+    # first update is close to the sign of the gradient
+    bars = {"backbone.ecapa": 0.999, "backbone.raw_branch": 0.95,
+            "loss": 0.999}
+    ok = (all(v["cos"] >= bars[k] for k, v in grad.items())
+          and all(r["loss_rel"] <= 2e-3 and r["stats_rel"] <= 2e-2
+                  and r["update_cos"] >= 0.9
+                  and abs(r["prec1_card"] - r["prec1_cpu"]) <= 100 / 8 + 1e-6
+                  for r in rows)
+          and counts["mel_frontend"] == 4 and counts["res2net_cascade"] == 0
+          and counts["quant_matmul"] == 0)
+    log(f"[E1] card vs CPU over 3 steps: max loss rel "
+        f"{max(r['loss_rel'] for r in rows):.3e} (bar 2e-3), max stats rel "
+        f"{max(r['stats_rel'] for r in rows):.3e} (bar 2e-2), min update "
+        f"cos {min(r['update_cos'] for r in rows):.6f} (bar 0.9); "
+        f"launches on the card (1 gradient + 3 steps) {counts} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("path E1: the card's train steps disagree with the CPU's")
+    return counts
+
+
+def time_steps(label: str, h, card: str, steps: int = 10,
+               warmup: int = 3) -> dict:
+    """ms per train step at the full batch (32 speakers x 2 crops of 2 s)
+    by CUDA events over ``steps`` steps after ``warmup``, peak memory,
+    and a profile of the step."""
+    import torch
+    state, step = train_state(h, E_DEVICE)
+    wave, label_np = seeded_batch(20, 32, 2, h)
+    wave = torch.from_numpy(wave).to(E_DEVICE)
+    lab = torch.from_numpy(label_np).to(E_DEVICE)
+    box = {"state": state}
+
+    def one():
+        box["state"], m = step(box["state"], wave, lab, h["lr"])
+        return m
+    for _ in range(warmup):
+        one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.time()
+    start.record()
+    for _ in range(steps):
+        m = one()
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) / steps * 1e3
+    ms = start.elapsed_time(end) / steps
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss = float(m["loss"])
+    if not (loss == loss and abs(loss) < 1e4):
+        fail(f"path E2 {label}: loss not finite ({loss})")
+    log(f"[E2 {label}] {ms:.2f} ms per step (CUDA events over {steps} "
+        f"steps; host wall {wall:.2f} ms) -> {64 / ms * 1e3:.1f} crops/s, "
+        f"peak memory {peak:.2f} GiB, loss {loss:.4f} ({card})")
+    profile(f"E2 {label}", None, None, fn=one, host=True)
+    return {"ms": ms, "crops_per_s": 64 / ms * 1e3, "peak_gib": peak,
+            "wall_ms": wall}
+
+
+def check_accum(h) -> None:
+    """accumulate_steps 2: the step's loss is the mean of the two
+    microbatches' losses, each from the step's incoming statistics."""
+    import torch
+    h2 = {**h, "accumulate_steps": 2}
+    state, step = train_state(h2, E_DEVICE)
+    wave, label = seeded_batch(21, 32, 2, h)
+    wave = torch.from_numpy(wave).to(E_DEVICE)
+    label = torch.from_numpy(label).to(E_DEVICE)
+    stats = [s.clone() for s in state.batch_stats.values()]
+    halves = []
+    state.model.train()
+    with torch.no_grad():
+        for i in range(2):
+            for s, s0 in zip(state.batch_stats.values(), stats):
+                s.copy_(s0)
+            loss, _ = state.model(wave[16 * i:16 * (i + 1)],
+                                  label[16 * i:16 * (i + 1)])
+            halves.append(float(loss))
+        for s, s0 in zip(state.batch_stats.values(), stats):
+            s.copy_(s0)
+    state, m = step(state, wave, label, h["lr"])
+    want = (halves[0] + halves[1]) / 2
+    rel = abs(float(m["loss"]) - want) / abs(want)
+    log(f"[E2 accum 2] step loss {float(m['loss']):.6f}, mean of the "
+        f"microbatch losses {want:.6f}: rel {rel:.3e} (bar 1e-5) "
+        f"{'ok' if rel <= 1e-5 else 'FAIL'}")
+    if rel > 1e-5:
+        fail("path E2: the accumulated step's loss is not the microbatch "
+             "mean")
+
+
+def check_learning(label: str, h, steps: int = 20) -> None:
+    """``steps`` steps on one fixed 64-crop batch, the yaml's cosine
+    schedule over them: the last 5 losses' mean falls below the first."""
+    import torch
+    from speakerverification_tpu_torch.builder import scheduler_from_hparams
+    state, step = train_state(h, E_DEVICE)
+    sched, _ = scheduler_from_hparams(h, steps)
+    wave, lab = seeded_batch(22, 32, 2, h)
+    wave = torch.from_numpy(wave).to(E_DEVICE)
+    lab = torch.from_numpy(lab).to(E_DEVICE)
+    losses = []
+    for i in range(steps):
+        state, m = step(state, wave, lab, sched(i))
+        losses.append(m["loss"])
+    losses = [float(x) for x in losses]
+    last = sum(losses[-5:]) / 5
+    ok = all(x == x for x in losses) and last < losses[0]
+    log(f"[E3 {label}] {steps} steps on one batch: first loss "
+        f"{losses[0]:.4f}, mean of the last 5 {last:.4f}, prec1 "
+        f"{float(m['prec1']):.1f} % {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"path E3 {label}: the loss did not fall ({losses})")
+
+
+def write_train_corpus(root, sr: int, n_spk: int = 64, n_utt: int = 4,
+                       seconds: float = 3.0):
+    """``n_spk`` speakers x ``n_utt`` WAVs (a tone per speaker over
+    noise), the manifest ``train.csv`` over all of them, and a trial list
+    of each speaker's first two files against the next speaker's."""
+    import numpy as np
+    from speakerverification_tpu_torch.data.audio import write_wav
+    from speakerverification_tpu_torch.data.manifest import Manifest
+    rng = np.random.default_rng(30)
+    tt = np.arange(int(seconds * sr)) / sr
+    rows, files = [], {}
+    for s in range(n_spk):
+        for u in range(n_utt):
+            sig = (0.2 * np.sin(2 * np.pi * (110.0 + 9.0 * s) * tt
+                                + rng.uniform(0, 6))
+                   + 0.05 * rng.normal(0, 1, tt.size))
+            path = root / "data" / f"spk{s:03d}" / f"u{u}.wav"
+            write_wav(path, sig.astype(np.float32), sr)
+            rows.append([f"spk{s:03d}", str(path), seconds, "wav"])
+            files.setdefault(s, []).append(str(path))
+    Manifest.write(root / "meta" / "train.csv", rows)
+    trials = root / "trials.txt"
+    trials.write_text("".join(
+        f"1 {files[s][0]} {files[s][1]}\n0 {files[s][0]} "
+        f"{files[(s + 1) % n_spk][2]}\n" for s in range(n_spk)))
+    return trials, 2 * n_spk
+
+
+def path_e4(tmp, card: str, h: dict) -> dict:
+    """``--do_train`` through the CLI on the yaml's training keys (paths and
+    number_of_epochs: 2 changed) over a synthetic manifest, then
+    ``--do_infer --eval`` of the trained checkpoint, in this process so
+    that the kernels' launches are counted."""
+    import io
+    import re
+    from speakerverification_tpu_torch.cli.main import main as cli_main
+    sr = h["audio_spec"]["sample_rate"]
+    t0 = time.time()
+    trials, n_trials = write_train_corpus(tmp, sr)
+    log(f"[E4] 64 speakers x 4 WAVs of 3 s written in "
+        f"{time.time() - t0:.1f} s")
+    cfg = {**h, "number_of_epochs": 2,
+           "save_folder": str(tmp / "save"), "data_folder": str(tmp / "data"),
+           "train_annotation": str(tmp / "meta" / "train.csv"),
+           "evaluation_file": str(trials),
+           "pretrained": {"use": False}}
+    path = tmp / "raw3_ecapa_train.yaml"
+    # YAML's JSON subset: read with or without PyYAML
+    path.write_text(json.dumps(cfg, indent=1))
+    dev_args = [] if E_DEVICE == "cuda" else ["--device", E_DEVICE]
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["--do_train", "--config", str(path), *dev_args])
+    train_s = time.time() - t0
+    import torch
+    torch.cuda.synchronize()
+    train_counts = read_counts()
+    text = out.getvalue()
+    for line in text.splitlines():
+        log(f"[E4 train] {line}")
+    run = tmp / "save" / h["model"]["name"] / "ARmSoftmax"
+    epochs = [float(x) for x in re.findall(r"utt/s, ([0-9.]+) s\)", text)]
+    missing = [n for n in ("model/best_state.msgpack",
+                           "model/last_state.msgpack", "result/scores.txt")
+               if not (run / n).exists()]
+    scores = ((run / "result" / "scores.txt").read_text().splitlines()
+              if not missing else [])
+    if rc != 0 or missing or len(scores) != 2 or len(epochs) != 2:
+        fail(f"path E4: --do_train rc {rc}, missing {missing}, scores "
+             f"{scores}, epochs {epochs}")
+    steps = int(json.loads((run / "model" / "model_state_log.json")
+                           .read_text())["step"])
+    log(f"[E4] --do_train: 2 epochs, {steps} steps of 64 crops, "
+        f"{train_s:.1f} s in all, per epoch {epochs} s ({card}); "
+        f"launches {train_counts}")
+    if train_counts["mel_frontend"] != steps:
+        fail(f"path E4: {steps} train steps but K1 launched "
+             f"{train_counts['mel_frontend']} times")
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["--do_infer", "--eval", "--config", str(path),
+                       *dev_args])
+    torch.cuda.synchronize()
+    eval_counts = read_counts()
+    for line in out.getvalue().splitlines():
+        log(f"[E4 eval] {line}")
+    rows = (run / "result" / "evaluation_results.csv").read_text() \
+        .strip().splitlines()
+    if rc != 0 or "loaded weights" not in out.getvalue() or \
+            len(rows) != n_trials + 1 or eval_counts["mel_frontend"] < 1:
+        fail(f"path E4: --do_infer --eval rc {rc}, {len(rows) - 1} trials "
+             f"scored, launches {eval_counts}")
+    log(f"[E4] --do_infer --eval of best_state: {n_trials} trials, "
+        f"launches {eval_counts}")
+    return {"counts": {k: train_counts[k] + eval_counts[k]
+                       for k in KERNELS}, "epochs_s": epochs}
+
+
+def path_e(tmp, card: str, h: dict = RAW3_TRAIN_HPARAMS) -> dict:
+    """Training the default stack at full width (E1-E4)."""
+    h = dict(h)
+    e1 = path_e1(h)
+    reset_counts()
+    fp32 = time_steps("fp32", h, card)
+    bf16 = time_steps("bf16 mixedprec", {**h, "mixedprec": True}, card)
+    check_accum(h)
+    acc = time_steps("fp32 accum 2", {**h, "accumulate_steps": 2}, card,
+                     steps=5)
+    check_learning("fp32", h)
+    check_learning("bf16", {**h, "mixedprec": True})
+    e23 = read_counts()
+    e4 = path_e4(tmp, card, h)
+    counts = {k: e1[k] + e23[k] + e4["counts"][k] for k in KERNELS}
+    log(f"[E] launches over E1-E4: {counts}")
+    return {"counts": counts, "fp32": fp32, "bf16": bf16, "accum2": acc,
+            "epochs_s": e4["epochs_s"]}
 
 
 def main() -> None:
@@ -1612,8 +2077,13 @@ def main() -> None:
         d = path_d(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    tmp = Path(tempfile.mkdtemp(prefix="svtorch_train_"))
+    try:
+        e = path_e(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     paths = {"A": a["counts"], "B": b["counts"], "C": c["counts"],
-             "D": d["counts"]}
+             "D": d["counts"], "E": e["counts"]}
     by_path = {k: {p: counts[k] for p, counts in paths.items()}
                for k in KERNELS}
 

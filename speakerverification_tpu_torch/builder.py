@@ -1,11 +1,12 @@
 """Build the port's objects from the YAML schema (port of ``builder.py``).
 
-The embedding path only: frontend config, compute dtype and the
-``SpeakerEncoder`` for ``Raw3_ECAPA`` and ``ECAPA_TDNN`` (and the other
-registered names). ``frontend_backend`` and ``model.conv_backend`` take
-``'auto' | 'xla' | 'pallas'``: ``'pallas'`` selects the port's
-hand-written kernel, ``'xla'`` the plain PyTorch path, ``'auto'`` the
-kernel on CUDA.
+Frontend config, compute dtype, the ``SpeakerEncoder`` for
+``Raw3_ECAPA`` and ``ECAPA_TDNN`` (and the other registered names) with
+its loss head (``criterion``), the optimizer (``optimizer``) and the
+learning-rate schedule (``callbacks``). ``frontend_backend`` and
+``model.conv_backend`` take ``'auto' | 'xla' | 'pallas'``: ``'pallas'``
+selects the port's hand-written kernel, ``'xla'`` the plain PyTorch
+path, ``'auto'`` the kernel on CUDA.
 """
 
 from __future__ import annotations
@@ -15,11 +16,13 @@ from typing import Mapping, Optional
 import torch
 
 from speakerverification_tpu_torch.encoder import SpeakerEncoder
+from speakerverification_tpu_torch.losses import build_loss
 from speakerverification_tpu_torch.ops.frontend import FrontendConfig
 from speakerverification_tpu_torch.registry import MODELS
 
 __all__ = ["compute_dtype_from_hparams", "frontend_from_hparams",
-           "encoder_from_hparams", "build_model", "eval_normalize_from_hparams"]
+           "encoder_from_hparams", "build_model", "eval_normalize_from_hparams",
+           "optimizer_from_hparams", "scheduler_from_hparams"]
 
 _BACKENDS = ("auto", "xla", "pallas")
 
@@ -58,9 +61,12 @@ def build_model(name: str, **kwargs):
     return MODELS.get(name)(**kwargs)
 
 
-def encoder_from_hparams(hparams: Mapping) -> SpeakerEncoder:
-    """Build the embedding ``SpeakerEncoder`` from a config (loss heads
-    come with the training slice)."""
+def encoder_from_hparams(hparams: Mapping,
+                         with_loss: bool = False) -> SpeakerEncoder:
+    """Build the ``SpeakerEncoder`` from a config; ``with_loss`` adds the
+    loss head that ``criterion`` names (default ``AAmSoftmax``) over
+    ``nClasses``. The inference engine and the server build without
+    one: the embedding path does not run it."""
     model_cfg = dict(hparams.get("model", {}))
     name = model_cfg.pop("name", "ECAPA_TDNN")
     n_out = int(model_cfg.pop("nOut", 192))
@@ -95,7 +101,59 @@ def encoder_from_hparams(hparams: Mapping) -> SpeakerEncoder:
         backbone.compute_dtype = compute_dtype
         backbone.frontend_backend = fe_backend
 
-    return SpeakerEncoder(backbone=backbone, feature_type=feature_type,
+    loss = None
+    if with_loss:
+        crit = dict(hparams.get("criterion", {}))
+        crit_name = crit.pop("name", "AAmSoftmax")
+        if int(hparams.get("model_parallel", 1) or 1) > 1:
+            raise NotImplementedError(
+                "model_parallel > 1 (the class-sharded head) is not ported "
+                "yet: the port trains on one device")
+        loss = build_loss(crit_name, nOut=n_out,
+                          nClasses=int(hparams.get("nClasses", 2)), **crit)
+
+    return SpeakerEncoder(backbone=backbone, loss=loss,
+                          feature_type=feature_type,
                           frontend=frontend_from_hparams(hparams, feature_type),
                           frontend_backend=fe_backend,
                           compute_dtype=compute_dtype)
+
+
+def optimizer_from_hparams(hparams: Mapping):
+    """The ``optimizer`` section's optimizer (default ``adam``) at ``lr``."""
+    from speakerverification_tpu_torch.optim import build_optimizer
+    opt = dict(hparams.get("optimizer", {}))
+    name = opt.pop("name", "adam")
+    return build_optimizer(name,
+                           learning_rate=float(hparams.get("lr", 1e-3)),
+                           weight_decay=float(opt.pop("weight_decay", 0.0)),
+                           **opt)
+
+
+def scheduler_from_hparams(hparams: Mapping, steps_per_epoch: int):
+    """``(schedule, unit)`` of the ``callbacks`` section (default
+    ``steplr``); ``T_max`` defaults to the steps per epoch.
+    ``reduceOnPlateau`` gives a :class:`ReduceOnPlateau` and ``'plateau'``."""
+    from speakerverification_tpu_torch.optim import (
+        ReduceOnPlateau,
+        build_scheduler,
+    )
+    cb = dict(hparams.get("callbacks", {}) or {})
+    name = cb.pop("name", "steplr")
+    opt = hparams.get("optimizer", {}) or {}
+    if name == "reduceOnPlateau":
+        pl = ReduceOnPlateau(lr=float(hparams.get("lr", 1e-3)),
+                             patience=int(cb.get("step_size", 5)),
+                             min_lr=float(cb.get("base_lr", 1e-6)),
+                             factor=0.95)
+        return pl, "plateau"
+    kwargs = dict(
+        T_max=int(hparams.get("T_max", steps_per_epoch) or steps_per_epoch),
+        lr_decay=float(opt.get("lr_decay", 0.95)),
+        step_size=int(cb.get("step_size", hparams.get("step_size", 10) or 10)),
+        eta_min=float(cb.get("base_lr", hparams.get("base_lr", 1e-6) or 1e-6)),
+        base_lr=float(cb.get("base_lr", hparams.get("base_lr", 1e-8) or 1e-8)),
+        max_lr=float(cb.get("max_lr", hparams.get("max_lr",
+                                                  hparams.get("lr", 1e-3)))),
+    )
+    return build_scheduler(name, lr=float(hparams.get("lr", 1e-3)), **kwargs)

@@ -21,9 +21,9 @@ weights are ``{"params": ..., "batch_stats": ...}`` in flax's layout
 (``weights.params_to_jax``). The loaders keep the JAX package's
 tolerance: a missing or shape-mismatched leaf stays at its initial value
 and is reported; a present subtree that shares no leaf names with the
-model's, or a load that restores nothing, raises. The port has no loss
-head yet, so a checkpoint's ``loss`` subtree is read and reported, not
-restored. Orbax directories (``training/checkpoint_sharded.py``) are
+model's, or a load that restores nothing, raises. A checkpoint's
+subtrees the template lacks (the ``loss`` head, for an engine that embeds
+without one) are read and reported, not restored. Orbax directories (``training/checkpoint_sharded.py``) are
 refused by name.
 """
 
@@ -417,8 +417,8 @@ def _tolerant(path, cur, saved, what: str):
         extra = sorted(set(saved) - set(cur))
         if extra:
             print(f"[load_params_only] the checkpoint's {what} subtrees "
-                  f"{extra} were read and not restored (the port has no "
-                  "loss head yet)")
+                  f"{extra} were read and not restored (the model was "
+                  "built without them)")
     total = _n_leaves(cur)
     if total and len(skipped) >= total and _n_leaves(saved):
         raise ValueError(

@@ -1,5 +1,6 @@
 """Command-line entry point of the port (the ported part of ``cli/main.py``).
 
+    python -m speakerverification_tpu_torch.cli.main --do_train --config y.yaml
     python -m speakerverification_tpu_torch.cli.main --do_infer --eval --config y.yaml
     python -m speakerverification_tpu_torch.cli.main --do_infer --prepare --config y.yaml
     python -m speakerverification_tpu_torch.cli.main --do_infer --test --config y.yaml
@@ -12,13 +13,17 @@ runs the preparation that the YAML key ``prepare`` names, ``cohorts``
 by default). ``--do_infer`` runs its verbs in the JAX order (prepare,
 eval, test, predict); with none of them it exits 2. The resolved config
 is frozen into the run's ``config/config_frozen.yaml``. ``--do_train``
-and ``--do_export`` exit 2: they are not ported yet.
+trains on one device (the manifests are generated from ``data_folder``
+when ``train_annotation`` is missing); ``--distributed``,
+``--data_parallel``, ``--model_parallel`` and ``--augment`` are not
+ported and exit 2, as does ``--do_export``.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+from pathlib import Path
 
 from speakerverification_tpu_torch.config import dump_config, read_config
 
@@ -27,6 +32,9 @@ from speakerverification_tpu_torch.config import dump_config, read_config
 _MODE_FLAGS = {"config", "do_train", "do_infer", "do_export", "do_serve",
                "serve_host", "serve_port", "eval", "test", "prepare",
                "predict", "device"}
+
+
+_REFUSED_FLAGS = ("distributed", "data_parallel", "augment")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -66,6 +74,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scoring_mode", type=str, default=None)
     p.add_argument("--mixedprec", action="store_true", default=None,
                    help="bf16 compute")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--number_of_epochs", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--accumulate_steps", type=int, default=None,
+                   help="gradient accumulation: each batch runs as this "
+                        "many microbatches, one optimizer update on the "
+                        "mean gradient")
+    p.add_argument("--test_interval", type=int, default=None)
+    p.add_argument("--early_stopping", action="store_true", default=None)
+    # the JAX CLI's multi-device and augmentation flags: not ported
+    for flag in _REFUSED_FLAGS:
+        p.add_argument(f"--{flag}", action="store_true", default=None)
+    p.add_argument("--model_parallel", type=int, default=None)
     return p
 
 
@@ -80,16 +102,48 @@ def _not_ported(what: str) -> int:
     return 2
 
 
+def ensure_metadata(hparams: dict) -> None:
+    """Write the train/dev manifests from ``data_folder`` when
+    ``train_annotation`` is missing (and ``skip_prep`` is off)."""
+    ann = hparams.get("train_annotation")
+    if not ann or Path(ann).exists() or hparams.get("skip_prep"):
+        return
+    from speakerverification_tpu_torch.data.manifest import generate_metadata
+    data_folder = hparams.get("data_folder")
+    if not data_folder or not Path(data_folder).exists():
+        raise FileNotFoundError(
+            f"train_annotation {ann} missing and data_folder "
+            f"{data_folder!r} not found — cannot generate metadata")
+    stats = generate_metadata(
+        data_folder, Path(ann).parent,
+        split_ratio=float(hparams.get("dataloader_options", {})
+                          .get("split_ratio", -1)),
+        seed=int(hparams.get("seed", 0)))
+    print(f"[INFO] generated metadata: {stats}")
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.do_train or args.do_export:
-        return _not_ported("--do_train" if args.do_train else "--do_export")
+    if args.do_export:
+        return _not_ported("--do_export")
+    for flag in _REFUSED_FLAGS:
+        if getattr(args, flag):
+            return _not_ported(f"--{flag}")
+    if (args.model_parallel or 1) > 1:
+        return _not_ported("--model_parallel")
     if not args.config:
         print("--config is required", file=sys.stderr)
         return 2
     hparams = load_hparams(args)
     from speakerverification_tpu_torch.inference import run_dirs
     dump_config(hparams, run_dirs(hparams)["config"] / "config_frozen.yaml")
+
+    if args.do_train:
+        ensure_metadata(hparams)
+        from speakerverification_tpu_torch.training.trainer import Trainer
+        result = Trainer(hparams, device=args.device).fit()
+        print(f"[DONE] min_loss {result['min_loss']:.4f}")
+        return 0
 
     if args.do_infer:
         # --predict with no files parses to []
@@ -116,7 +170,8 @@ def main(argv=None) -> int:
               device=args.device)
         return 0
 
-    print("nothing to do: pass --do_infer or --do_serve", file=sys.stderr)
+    print("nothing to do: pass --do_train, --do_infer or --do_serve",
+          file=sys.stderr)
     return 2
 
 

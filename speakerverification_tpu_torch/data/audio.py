@@ -1,9 +1,11 @@
-"""Audio crop loading for evaluation and serving (port of the eval
-path of ``data/audio.py``'s ``load_wav``):
+"""Audio crop loading (port of ``data/audio.py``'s ``load_wav``):
 
 * short audio is pad-wrapped to ``sentence_len * sr + 1`` samples;
-* ``num_eval`` crops at ``linspace(0, size - max_audio)`` offsets are
-  stacked ``[num_eval, T]``; ``num_eval == 0`` → the whole file.
+* eval mode: ``num_eval`` crops at ``linspace(0, size - max_audio)``
+  offsets are stacked ``[num_eval, T]``; ``num_eval == 0`` → the whole
+  file;
+* train mode: one crop at a random offset drawn from ``rng`` (a
+  ``numpy.random.Generator``), or at 0 when ``random_chunk`` is off.
 
 WAV files are read with the standard library's ``wave`` module, 16-bit
 PCM only, scaled by 1/32768 and averaged to mono; :func:`write_wav`
@@ -79,10 +81,13 @@ def write_wav(path: Union[str, Path], audio: np.ndarray,
 
 
 def load_wav(source: Union[str, np.ndarray], spec: Optional[Mapping] = None,
-             num_eval: int = 10) -> np.ndarray:
-    """Load audio and cut its eval crops: ``[num_eval, T]`` float32, or
-    ``[1, whole]`` for ``num_eval == 0``. A WAV path must match the
-    configured sample rate; an ndarray source is peak-normalized."""
+             num_eval: int = 10, *, evalmode: bool = True,
+             random_chunk: bool = True,
+             rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Load audio and cut its crops: eval mode ``[num_eval, T]`` float32,
+    or ``[1, whole]`` for ``num_eval == 0``; train mode ``[1, T]``. A WAV
+    path must match the configured sample rate; an ndarray source is
+    peak-normalized."""
     spec = AudioSpec(spec)
 
     if isinstance(source, str):
@@ -99,8 +104,14 @@ def load_wav(source: Union[str, np.ndarray], spec: Optional[Mapping] = None,
     if audio.shape[0] <= max_audio:
         shortage = max_audio - audio.shape[0] + 1
         audio = np.pad(audio, (0, shortage), "wrap")
-    if num_eval == 0:
-        return np.expand_dims(audio.astype(np.float32), 0)
-    starts = np.linspace(0, audio.shape[0] - max_audio, num=num_eval)
+    if evalmode:
+        if num_eval == 0:
+            return np.expand_dims(audio.astype(np.float32), 0)
+        starts = np.linspace(0, audio.shape[0] - max_audio, num=num_eval)
+    elif random_chunk:
+        rng = rng or np.random.default_rng()
+        starts = np.array([int(rng.random() * (audio.shape[0] - max_audio))])
+    else:
+        starts = np.array([0])
     crops = [audio[int(s):int(s) + max_audio] for s in starts]
     return np.stack(crops, axis=0).astype(np.float32)

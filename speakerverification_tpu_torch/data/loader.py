@@ -1,17 +1,31 @@
-"""Batched eval-crop loading over unique trial files (port of
-``EvalDataLoader`` from ``data/loader.py``)."""
+"""Data loaders (port of ``data/loader.py``): batched eval crops over
+unique trial files (``EvalDataLoader``), and speaker-balanced training
+batches (``TrainDataLoader``, ``train_data_loader``).
+
+Training batches are ``{"wave": [B, nPerSpeaker, T] float32, "label":
+[B] int32}``: a thread pool cuts one random crop per utterance, each
+tuple from its own ``numpy`` generator seeded from the epoch's, and a
+background thread keeps ``prefetch`` batches ready. The draws are the
+JAX loader's, so the same manifest and seed give the same batches.
+Augmentation (``augment: true``) and packed shards
+(``dataloader_options.shards``) are not ported and are refused by name.
+"""
 
 from __future__ import annotations
 
 import os
+import queue
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Mapping
 
 import numpy as np
 
 from speakerverification_tpu_torch.data.audio import AudioSpec, load_wav
+from speakerverification_tpu_torch.data.manifest import Manifest
+from speakerverification_tpu_torch.data.sampler import SpeakerBatchSampler
 
-__all__ = ["EvalDataLoader"]
+__all__ = ["EvalDataLoader", "TrainDataLoader", "train_data_loader"]
 
 
 def _usable_cpus() -> int:
@@ -58,3 +72,126 @@ class EvalDataLoader:
                 if len(waves) < self.batch_size:
                     waves.extend([waves[-1]] * (self.batch_size - len(waves)))
                 yield np.stack(waves), chunk
+
+
+class TrainDataLoader:
+    def __init__(self, manifest: Manifest, audio_spec: Mapping,
+                 batch_size: int, nPerSpeaker: int = 1,
+                 max_seg_per_spk: int = 500, random_chunk: bool = True,
+                 num_workers: int = 8, prefetch: int = 4, seed: int = 0,
+                 num_replicas: int = 1, rank: int = 0):
+        self.manifest = manifest
+        self.spec = AudioSpec(audio_spec)
+        self.batch_size = batch_size
+        self.n_per_speaker = nPerSpeaker
+        self.random_chunk = random_chunk
+        self.num_workers = max(1, min(num_workers, _usable_cpus()))
+        self.prefetch = prefetch
+        self.seed = seed
+        self.sampler = SpeakerBatchSampler(
+            manifest.labels, batch_size, nPerSpeaker, max_seg_per_spk,
+            seed=seed, num_replicas=num_replicas, rank=rank)
+        if len(self.sampler) == 0:
+            raise ValueError(
+                f"sampler yields zero batches: batch_size={batch_size} "
+                f"(x{num_replicas} replicas) needs that many DISTINCT "
+                f"speakers per batch, but the manifest has "
+                f"{manifest.num_classes} speakers / {len(manifest)} "
+                f"utterances (nPerSpeaker={nPerSpeaker}). Reduce batch_size "
+                f"or nPerSpeaker.")
+
+    def set_epoch(self, epoch: int) -> None:
+        self.sampler.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self.sampler)
+
+    def _load_tuple(self, index_tuple, rng: np.random.Generator) -> np.ndarray:
+        crops = [load_wav(self.manifest.paths[idx], self.spec, evalmode=False,
+                          random_chunk=self.random_chunk, rng=rng)[0]
+                 for idx in index_tuple]
+        return np.stack(crops, axis=0)                      # [nPer, T]
+
+    def _batches(self) -> Iterator[dict]:
+        epoch_rng = np.random.default_rng(
+            (self.seed + self.sampler.epoch) * 7919 + 13)
+        with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+            for batch in self.sampler:
+                seeds = epoch_rng.integers(0, 2**31, size=len(batch))
+                futures = [pool.submit(self._load_tuple, tup,
+                                       np.random.default_rng(int(s)))
+                           for tup, s in zip(batch, seeds)]
+                waves = np.stack([f.result() for f in futures])
+                labels = np.asarray(
+                    [self.manifest.labels[t[0]] for t in batch], np.int32)
+                yield {"wave": waves, "label": labels}
+
+    def __iter__(self) -> Iterator[dict]:
+        """Batches with background prefetch. A consumer that stops early
+        stops the producer thread and its pool too."""
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        sentinel = object()
+        errbox = []
+        stop = threading.Event()
+
+        def producer():
+            try:
+                for item in self._batches():
+                    while not stop.is_set():
+                        try:
+                            q.put(item, timeout=0.1)
+                            break
+                        except queue.Full:
+                            continue
+                    if stop.is_set():
+                        return
+            except BaseException as e:          # raised in the consumer
+                errbox.append(e)
+            finally:
+                try:
+                    q.put_nowait(sentinel)
+                except queue.Full:
+                    pass                        # the consumer has gone
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is sentinel:
+                    if errbox:
+                        raise errbox[0]
+                    return
+                yield item
+        finally:
+            stop.set()
+            while not q.empty():                # unblock a full queue
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+
+
+def train_data_loader(hparams: Mapping, num_replicas: int = 1,
+                      rank: int = 0) -> TrainDataLoader:
+    """The training loader of a config (``train_annotation``,
+    ``dataloader_options``, ``audio_spec``, ``random_chunk``, ``seed``)."""
+    opts = hparams.get("dataloader_options", {}) or {}
+    if hparams.get("augment"):
+        raise NotImplementedError(
+            "augment: true is not ported yet (env_corrupt, time-domain "
+            "and SpecAugment): train with augment: false")
+    if opts.get("shards"):
+        raise NotImplementedError(
+            "dataloader_options.shards (packed shards, data/shards.py) is "
+            "not ported yet: train from the WAV manifest")
+    return TrainDataLoader(
+        manifest=Manifest.read(hparams["train_annotation"]),
+        audio_spec=hparams["audio_spec"],
+        batch_size=int(opts.get("batch_size", hparams.get("batch_size", 32))),
+        nPerSpeaker=int(opts.get("nPerSpeaker", 1)),
+        max_seg_per_spk=int(opts.get("max_seg_per_spk", 500)),
+        random_chunk=bool(hparams.get("random_chunk", True)),
+        num_workers=int(opts.get("num_workers", 8)),
+        seed=int(hparams.get("seed", 0)),
+        num_replicas=num_replicas, rank=rank)

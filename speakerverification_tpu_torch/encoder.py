@@ -1,8 +1,10 @@
-"""SpeakerEncoder: frontend + backbone (port of ``encoder.py``).
+"""SpeakerEncoder: frontend + backbone + loss head (port of ``encoder.py``).
 
-The embedding path only: ``wave [B, T]`` (or ``[B, nPerSpeaker, T]``)
-→ embeddings ``[B(, nPerSpeaker), D]``. Loss heads come with the
-training slice; a call with labels raises ``NotImplementedError``.
+``wave [B, T]`` (or ``[B, nPerSpeaker, T]``) → embeddings
+``[B(, nPerSpeaker), D]``; called with labels, the embeddings are
+grouped per speaker (``[B, nPerSpeaker, D]``) and the loss head returns
+``(loss, prec1)``. The head sits under ``loss``, as the JAX module keeps
+its parameters under ``params["loss"]``.
 """
 
 from __future__ import annotations
@@ -22,12 +24,14 @@ __all__ = ["SpeakerEncoder"]
 
 class SpeakerEncoder(nn.Module):
     def __init__(self, backbone: nn.Module,
+                 loss: Optional[nn.Module] = None,
                  feature_type: str = "melspectrogram",
                  frontend: FrontendConfig = FrontendConfig(),
                  frontend_backend: str = "auto",
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.backbone = backbone
+        self.loss = loss
         self.feature_type = feature_type
         self.frontend = frontend
         # 'xla' | 'pallas' | 'auto': 'pallas' runs the mel kernel
@@ -51,14 +55,14 @@ class SpeakerEncoder(nn.Module):
         return self.backbone(feats)
 
     def forward(self, wave: torch.Tensor,
-                label: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``wave``: ``[B, T]`` or ``[B, nPerSpeaker, T]`` audio."""
-        if label is not None:
-            raise NotImplementedError(
-                "loss heads are not ported yet: SpeakerEncoder embeds only")
+                label: Optional[torch.Tensor] = None):
+        """``wave``: ``[B, T]`` or ``[B, nPerSpeaker, T]`` audio. Returns
+        the embeddings, or ``(loss, prec1)`` when ``label`` is given."""
+        if label is not None and self.loss is None:
+            raise ValueError("SpeakerEncoder built without a loss head")
         grouped = wave.dim() == 3
         n_per = wave.shape[1] if grouped else 1
         emb = self._embed(wave.reshape(-1, wave.shape[-1]))
-        if grouped:
-            emb = emb.reshape(-1, n_per, emb.shape[-1])
-        return emb
+        if label is None:
+            return emb.reshape(-1, n_per, emb.shape[-1]) if grouped else emb
+        return self.loss(emb.reshape(-1, n_per, emb.shape[-1]), label)

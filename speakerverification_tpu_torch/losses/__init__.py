@@ -1,0 +1,30 @@
+"""Loss heads (port of the ``losses`` package's margin heads).
+
+Each head is called as ``head(x, label) -> (loss, prec1)`` and carries
+``test_normalize``; heads are registered under their YAML names
+(``criterion.name``). Ported: ``Softmax``, ``AmSoftmax``,
+``AAmSoftmax`` and ``ARmSoftmax``.
+"""
+
+import inspect
+
+from speakerverification_tpu_torch.losses.margin import (  # noqa: F401
+    AAmSoftmax,
+    AmSoftmax,
+    Softmax,
+)
+from speakerverification_tpu_torch.losses.margin_extra import (  # noqa: F401
+    ARmSoftmax,
+)
+from speakerverification_tpu_torch.registry import LOSSES
+
+__all__ = ["LOSSES", "build_loss"]
+
+
+def build_loss(name: str, **kwargs):
+    """The head registered as ``name``, built from the config keys its
+    constructor takes (the others are dropped, as the JAX builder drops
+    what a head's fields lack)."""
+    cls = LOSSES.get(name)
+    accepted = set(inspect.signature(cls.__init__).parameters) - {"self"}
+    return cls(**{k: v for k, v in kwargs.items() if k in accepted})

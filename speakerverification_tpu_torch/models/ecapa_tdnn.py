@@ -20,6 +20,7 @@ from speakerverification_tpu_torch.models.layers import (
     SERes2NetBlock,
     TDNNBlock,
     gelu_exact,
+    promoted,
 )
 from speakerverification_tpu_torch.registry import MODELS
 
@@ -85,7 +86,7 @@ class ECAPA_TDNN(nn.Module):
         x = self.TDNNBlock_1(torch.cat(block_outputs, dim=1))
         x = self.AttentiveStatisticsPooling_0(x, lengths)     # [B, 2C]
         x = self.BatchNorm1d_0(x)
-        return self.Dense_0(x)
+        return promoted(self.Dense_0, x)
 
 
 @MODELS.register("ECAPA_TDNN")

@@ -26,9 +26,11 @@ from speakerverification_tpu_torch.ops.res2net_cascade import (
 )
 
 __all__ = [
+    "promoted",
     "gelu_exact",
     "length_to_mask",
     "batch_norm",
+    "bn_module",
     "Conv1d",
     "BatchNorm1d",
     "TDNNBlock",
@@ -37,6 +39,22 @@ __all__ = [
     "AttentiveStatisticsPooling",
     "SERes2NetBlock",
 ]
+
+
+def promoted(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``module(x)`` for a conv or linear layer; where x and the weights
+    differ in dtype (bf16 weights after an fp32 reduction), both are
+    promoted to the wider one first, as jnp promotes a bf16 kernel
+    against an fp32 input. The module is still called (its hooks run,
+    as int8 calibration's do)."""
+    w = getattr(module, "weight", None)
+    if not isinstance(module, (nn.Conv1d, nn.Linear)) or w.dtype == x.dtype:
+        return module(x)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    promoted_weights = {"weight": w.to(dt)}
+    if module.bias is not None:
+        promoted_weights["bias"] = module.bias.to(dt)
+    return torch.func.functional_call(module, promoted_weights, (x.to(dt),))
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -51,19 +69,45 @@ def length_to_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
 
 
 def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
-    """``bn(x)``; when the parameters were cast to a lower precision than
-    the running statistics (mixed-precision eval), the affine is computed
-    in fp32 and the result returned in x's dtype."""
+    """``bn`` over the channels of ``x`` (``[B, C]`` or ``[B, C, T]``), as
+    flax's ``nn.BatchNorm(momentum=0.9)`` computes it; returns x's dtype.
+
+    Training mode normalizes with the biased batch statistics, computed
+    in fp32 at least whatever x's dtype (E[x²] − E[x]², clipped at 0), and
+    updates the fp32 running statistics as flax does: ``ra = 0.9·ra +
+    0.1·stat``, with the biased variance (torch's own update takes the
+    unbiased one). Eval mode is ``bn(x)``; when the parameters were cast
+    to a lower precision than the running statistics (mixed-precision
+    eval), the affine is computed in fp32."""
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    if bn.training:
+        dims = [0] + list(range(2, x.dim()))
+        # fp32 at least, as flax promotes its statistics
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dims)
+        var = torch.clamp(torch.square(xf).mean(dims) - torch.square(mean),
+                          min=0.0)
+        with torch.no_grad():
+            m = 1.0 - bn.momentum
+            bn.running_mean.copy_(m * bn.running_mean
+                                  + (1.0 - m) * mean.detach())
+            bn.running_var.copy_(m * bn.running_var
+                                 + (1.0 - m) * var.detach())
+        mul = torch.rsqrt(var + bn.eps) * bn.weight.to(xf.dtype)
+        y = ((xf - mean.view(shape)) * mul.view(shape)
+             + bn.bias.to(xf.dtype).view(shape))
+        return y.to(x.dtype)
     if x.dtype == bn.weight.dtype == bn.running_mean.dtype:
         return bn(x)
-    shape = (1, -1) + (1,) * (x.dim() - 2)
     s = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
     t = bn.bias.float() - bn.running_mean.float() * s
     return (x.float() * s.view(shape) + t.view(shape)).to(x.dtype)
 
 
-def _bn(features: int) -> nn.BatchNorm1d:
-    # flax momentum 0.9 (running = 0.9*running + 0.1*batch) is torch's 0.1
+def bn_module(features: int) -> nn.BatchNorm1d:
+    """The container of one BatchNorm's parameters and running statistics
+    (eps 1e-5; torch momentum 0.1 is flax's 0.9), run by
+    :func:`batch_norm`."""
     return nn.BatchNorm1d(features, eps=1e-5, momentum=0.1)
 
 
@@ -82,7 +126,7 @@ class Conv1d(nn.Module):
         if self.pad > 0:
             x = F.pad(x, (self.pad // 2, self.pad - self.pad // 2),
                       mode="reflect")
-        return self.Conv_0(x)
+        return promoted(self.Conv_0, x)
 
 
 class BatchNorm1d(nn.Module):
@@ -90,7 +134,7 @@ class BatchNorm1d(nn.Module):
 
     def __init__(self, features: int):
         super().__init__()
-        self.BatchNorm_0 = _bn(features)
+        self.BatchNorm_0 = bn_module(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return batch_norm(self.BatchNorm_0, x)
@@ -251,14 +295,17 @@ class AttentiveStatisticsPooling(nn.Module):
         B, C, L = x.shape
         if lengths is None:
             lengths = torch.ones(B, dtype=x.dtype, device=x.device)
-        mask = length_to_mask(lengths * L, L)[:, None, :].to(x.dtype)  # [B,1,L]
+        # an fp32 mask, as the JAX module's: with bf16 activations the
+        # statistics, and all that follows them, are fp32
+        mask = length_to_mask(lengths * L, L)[:, None, :]       # [B,1,L]
         blk = self.TDNNBlock_0
         if self.global_context:
             total = mask.sum(dim=2, keepdim=True)
             mean, std = self._statistics(x, mask / total)
             conv = blk.Conv1d_0.Conv_0
-            w = conv.weight[:, :, 0]                        # [A, 3C]
-            ctx = mean @ w[:, C:2 * C].T + std @ w[:, 2 * C:].T + conv.bias
+            w = conv.weight[:, :, 0].to(mean.dtype)         # [A, 3C]
+            ctx = (mean @ w[:, C:2 * C].T + std @ w[:, 2 * C:].T
+                   + conv.bias.to(mean.dtype))
             h = F.conv1d(x, conv.weight[:, :C]) + ctx[:, :, None]
             attn = blk.BatchNorm1d_0(torch.relu(h))
         else:

@@ -11,7 +11,10 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from speakerverification_tpu_torch.models.layers import batch_norm
+from speakerverification_tpu_torch.models.layers import (
+    batch_norm,
+    bn_module,
+)
 from speakerverification_tpu_torch.models.rawnet_blocks import (
     Bottle2neckRaw,
     max_pool1d,
@@ -20,10 +23,6 @@ from speakerverification_tpu_torch.ops.frontend import pre_emphasis
 from speakerverification_tpu_torch.ops.sinc import SincConv
 
 __all__ = ["RawNet3"]
-
-
-def _bn(features: int) -> nn.BatchNorm1d:
-    return nn.BatchNorm1d(features, eps=1e-5, momentum=0.1)
 
 
 class RawNet3(nn.Module):
@@ -48,9 +47,9 @@ class RawNet3(nn.Module):
         self.Bottle2neckRaw_2 = Bottle2neckRaw(C, C, 3, 4, model_scale)
         self.Conv_0 = nn.Conv1d(3 * C, context_dim, 1)
         self.Conv_1 = nn.Conv1d(3 * context_dim, 128, 1)
-        self.BatchNorm_0 = _bn(128)
+        self.BatchNorm_0 = bn_module(128)
         self.Conv_2 = nn.Conv1d(128, 1, 1)
-        self.BatchNorm_1 = _bn(2 * context_dim)
+        self.BatchNorm_1 = bn_module(2 * context_dim)
         self.Dense_0 = nn.Linear(2 * context_dim, nOut)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from speakerverification_tpu_torch.models.layers import batch_norm
+from speakerverification_tpu_torch.models.layers import (
+    batch_norm,
+    bn_module,
+)
 
 __all__ = ["AFMS", "Bottle2neckRaw", "max_pool1d"]
 
@@ -22,10 +25,6 @@ __all__ = ["AFMS", "Bottle2neckRaw", "max_pool1d"]
 def max_pool1d(x: torch.Tensor, pool: int) -> torch.Tensor:
     """Non-overlapping temporal max pooling on ``[B, C, L]``."""
     return F.max_pool1d(x, pool, pool)
-
-
-def _bn(features: int) -> nn.BatchNorm1d:
-    return nn.BatchNorm1d(features, eps=1e-5, momentum=0.1)
 
 
 class AFMS(nn.Module):
@@ -64,8 +63,9 @@ class Bottle2neckRaw(nn.Module):
                  + [nn.Conv1d(width, width, kernel_size, dilation=dilation,
                               padding=pad) for _ in range(scale - 1)]
                  + [nn.Conv1d(width * scale, planes, 1)])
-        bns = [_bn(width * scale)] + [_bn(width) for _ in range(scale - 1)] \
-            + [_bn(planes)]
+        bns = ([bn_module(width * scale)]
+               + [bn_module(width) for _ in range(scale - 1)]
+               + [bn_module(planes)])
         for name, m in zip(self.conv_names, convs):
             self.add_module(name, m)
         for name, m in zip(self.bn_names, bns):

@@ -333,6 +333,16 @@ def _launch(padded: torch.Tensor, cs: torch.Tensor, fb: torch.Tensor,
     return out
 
 
+def refuse_grad(padded: torch.Tensor) -> None:
+    """The kernel has no backward: a wave that needs a gradient raises
+    ``ValueError`` instead of getting features with no gradient path.
+    (A train step takes the gradient with respect to the parameters
+    only, and the wave is not one.)"""
+    if padded.requires_grad and torch.is_grad_enabled():
+        raise ValueError("mel_frontend: the kernel has no backward, and "
+                         "this wave requires a gradient")
+
+
 def mel_frontend(padded: torch.Tensor, cs: torch.Tensor, fb: torch.Tensor,
                  hop: int, rows: tuple[int, int]) -> torch.Tensor:
     """Frame, DFT, power and mel of a padded wave ``[B, Tp]``.
@@ -347,9 +357,11 @@ def mel_frontend(padded: torch.Tensor, cs: torch.Tensor, fb: torch.Tensor,
     even ``win_length`` centred in the frame) and takes the unfolded
     route, twice the depth, for any other window (an odd one, such as
     201 at 8 kHz or 441 at 22.05 kHz, is symmetric about
-    ``n_fft/2 - 1/2``). The plain version on a CPU tensor takes any
+    ``n_fft/2 - 1/2``). A CUDA wave that requires a gradient raises
+    (:func:`refuse_grad`). The plain version on a CPU tensor takes any
     basis."""
     if padded.is_cuda:
+        refuse_grad(padded)
         return _launch(padded, cs, fb, hop, rows)
     if padded.device.type == "cpu":
         return mel_frontend_plain(padded, cs, fb, hop, rows)

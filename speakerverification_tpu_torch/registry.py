@@ -7,7 +7,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict
 
-__all__ = ["Registry", "MODELS"]
+__all__ = ["Registry", "MODELS", "LOSSES", "OPTIMIZERS", "SCHEDULERS"]
 
 
 class Registry:
@@ -41,3 +41,6 @@ class Registry:
 
 
 MODELS = Registry("model")
+LOSSES = Registry("loss")
+OPTIMIZERS = Registry("optimizer")
+SCHEDULERS = Registry("scheduler")

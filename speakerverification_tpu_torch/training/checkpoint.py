@@ -1,0 +1,281 @@
+"""Train-state checkpoints and their retention (port of
+``training/checkpoint.py``: ``CheckpointManager``, ``load_checkpoint``,
+``load_params_only``).
+
+A :class:`~speakerverification_tpu_torch.training.state.TrainState` is
+written as the JAX trainer writes its ``TrainState``: flax msgpack
+(``checkpoint.save_checkpoint``, the port's codec) of ``{"step",
+"params", "batch_stats", "opt_state"}`` in flax layout
+(``weights.params_to_jax``; the loss head under ``params["loss"]``), the
+optimizer state as optax's serializes (``optim``: moments and EMA in
+flax layout, counts int32, the learning rate fp32), beside a JSON
+sidecar. The JAX package's ``load_checkpoint`` restores such a file as
+its full train state, and the port restores the JAX package's.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import time
+from pathlib import Path
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from speakerverification_tpu_torch import checkpoint as codec
+from speakerverification_tpu_torch.optim import ParamTree
+from speakerverification_tpu_torch.training.state import TrainState
+from speakerverification_tpu_torch.weights import (
+    params_from_jax,
+    params_to_jax,
+)
+
+__all__ = ["state_to_jax", "load_checkpoint", "load_params_only",
+           "CheckpointManager"]
+
+
+def _opt_to_jax(node: Any, model_state: dict) -> Any:
+    if isinstance(node, ParamTree):
+        # the model's state supplies the BatchNorm scopes; the tree's
+        # tensors replace its parameters
+        return params_to_jax({**model_state, **node})[0]
+    if isinstance(node, dict):
+        return {k: _opt_to_jax(v, model_state) for k, v in node.items()}
+    if isinstance(node, tuple):
+        return tuple(_opt_to_jax(v, model_state) for v in node)
+    if isinstance(node, bool):
+        return node
+    if isinstance(node, int):
+        return np.asarray(node, np.int32)
+    if isinstance(node, (float, np.floating)):
+        return np.asarray(node, np.float32)
+    if isinstance(node, torch.Tensor):
+        return node.detach().cpu().numpy()
+    return node
+
+
+def state_to_jax(state: TrainState) -> dict:
+    """The state as the JAX ``TrainState`` serializes: numpy trees in
+    flax layout."""
+    sd = state.model.state_dict()
+    params, stats = params_to_jax(sd)
+    return {"step": np.asarray(state.step, np.int32), "params": params,
+            "batch_stats": stats,
+            "opt_state": _opt_to_jax(state.opt_state, sd)}
+
+
+def _mismatch(path: str, what: str) -> ValueError:
+    return ValueError(f"checkpoint optimizer state does not match the "
+                      f"optimizer's at {path or '<root>'}: {what}")
+
+
+def _opt_from_jax(template: Any, raw: Any, stats: dict, path: str = "") -> Any:
+    """``raw`` (a flax state dict) restored into ``template``'s structure;
+    ``ValueError`` where the two differ."""
+    if isinstance(template, ParamTree):
+        if not isinstance(raw, dict):
+            raise _mismatch(path, "expected a parameter tree")
+        try:
+            sd = params_from_jax(raw, stats)
+        except KeyError as exc:
+            raise _mismatch(path, str(exc)) from None
+        out = ParamTree()
+        for k, t in template.items():
+            if k not in sd or tuple(sd[k].shape) != tuple(t.shape):
+                raise _mismatch(f"{path}/{k}", "missing or of another shape")
+            out[k] = sd[k].to(t.device, t.dtype)
+        extra = sorted(set(_param_keys(sd)) - set(template))
+        if extra:
+            raise _mismatch(path, f"left over {extra[:3]}")
+        return out
+    if isinstance(template, (dict, tuple)):
+        keys = (list(template) if isinstance(template, dict)
+                else [str(i) for i in range(len(template))])
+        if not isinstance(raw, dict) or set(raw) != set(keys):
+            got = sorted(raw) if isinstance(raw, dict) else type(raw)
+            raise _mismatch(path, f"keys {got} != {keys}")
+        vals = template.values() if isinstance(template, dict) else template
+        out = [_opt_from_jax(t, raw[k], stats, f"{path}/{k}")
+               for k, t in zip(keys, vals)]
+        return dict(zip(keys, out)) if isinstance(template, dict) \
+            else tuple(out)
+    if isinstance(template, bool):
+        return bool(raw)
+    if isinstance(template, int):
+        return int(np.asarray(raw))
+    if isinstance(template, (float, np.floating)):
+        return np.float32(np.asarray(raw))
+    return raw
+
+
+def _param_keys(sd: dict) -> list:
+    return [k for k in sd if k.rpartition(".")[2] not in
+            ("running_mean", "running_var", "num_batches_tracked")]
+
+
+def load_checkpoint(path: str | Path, state: TrainState) -> TrainState:
+    """Restore a whole train state (weights, statistics, optimizer state,
+    step) into ``state``. Raises ``ValueError`` when the checkpoint's
+    optimizer state or weights do not match ``state``'s (the trainer then
+    restores the weights only)."""
+    raw = codec.load_checkpoint(path)
+    for key in ("params", "batch_stats", "opt_state"):
+        if key not in raw:
+            raise ValueError(f"{path}: not a train state (no {key!r})")
+    try:
+        sd = params_from_jax(raw["params"], raw["batch_stats"],
+                             like=state.model)
+    except KeyError as exc:
+        raise ValueError(f"{path}: {exc}") from None
+    opt_state = _opt_from_jax(state.opt_state, raw["opt_state"],
+                              raw["batch_stats"])
+    state.model.load_state_dict(sd)
+    state.opt_state = opt_state
+    state.step = int(np.asarray(raw.get("step", 0)))
+    return state
+
+
+def load_params_only(path: str | Path, state: TrainState) -> TrainState:
+    """Merge the checkpoint's weights and batch statistics into
+    ``state``'s model, with ``checkpoint.load_params_only``'s tolerance;
+    the optimizer state and step stay."""
+    params, stats = params_to_jax(state.model.state_dict())
+    merged = codec.load_params_only(path, {"params": params,
+                                           "batch_stats": stats})
+    state.model.load_state_dict(params_from_jax(
+        merged["params"], merged["batch_stats"], like=state.model))
+    return state
+
+
+class CheckpointManager:
+    """best/top-k/last retention with a resume log, in ``run_dir``:
+    ``best_state.msgpack``, ``best_state_top{1..k}.msgpack``,
+    ``last_state.msgpack`` (or per-epoch ``model_state_{e:06d}``),
+    time-based ``ckpt_YYYYmmdd_HH_MM`` (keep 3) and
+    ``model_state_log.json``."""
+
+    SUFFIX = ".msgpack"
+
+    def __init__(self, run_dir: str | Path, top_k: int = 3,
+                 save_per_epoch: bool = False,
+                 time_interval_min: float = -1):
+        self.run_dir = Path(run_dir)
+        self.run_dir.mkdir(parents=True, exist_ok=True)
+        self.top_k = top_k
+        self.save_per_epoch = save_per_epoch
+        self.time_interval_min = time_interval_min
+        self._last_time_save = time.time()
+        self._log_path = self.run_dir / "model_state_log.json"
+        # the best loss of an earlier run, from its best_state sidecar, so
+        # that a resumed run's first epoch cannot clobber best_state
+        self._best_loss = float("inf")
+        best = self._existing("best_state")
+        best_side = Path(str(best) + ".json") if best else None
+        if best_side and best_side.exists():
+            try:
+                self._best_loss = float(json.loads(
+                    best_side.read_text()).get("loss", float("inf")))
+            except (ValueError, json.JSONDecodeError, TypeError):
+                pass
+
+    def _p(self, name: str) -> Path:
+        return self.run_dir / (name + self.SUFFIX)
+
+    def _existing(self, name: str) -> Optional[Path]:
+        """The newer of ``name.msgpack`` and an orbax directory ``name``
+        (which the loader then refuses by name)."""
+        cands = [p for p in (self.run_dir / (name + ".msgpack"),
+                             self.run_dir / name) if p.exists()]
+        if not cands:
+            return None
+        return max(cands, key=lambda p: p.stat().st_mtime)
+
+    @staticmethod
+    def _save(path: Path, state: TrainState, meta: dict) -> None:
+        codec.save_checkpoint(path, state_to_jax(state), meta)
+
+    @staticmethod
+    def _drop(path: Path) -> None:
+        if path.is_dir():
+            shutil.rmtree(path)
+        else:
+            path.unlink(missing_ok=True)
+
+    def save_epoch(self, state: TrainState, epoch: int, loss: float,
+                   lr: float, extra_meta: Optional[dict] = None) -> dict:
+        """Apply the retention policy for one finished epoch."""
+        meta = {"epoch": epoch, "step": int(state.step), "loss": float(loss),
+                "lr": float(lr), **(extra_meta or {})}
+        saved = {"best": False}
+        if loss < self._best_loss:
+            self._best_loss = loss
+            # rotate top-k: top1 -> top2 -> ... -> topk (dropped)
+            for i in range(self.top_k, 1, -1):
+                src = self._p(f"best_state_top{i - 1}")
+                if src.exists():
+                    src.replace(self._p(f"best_state_top{i}"))
+                    js = Path(str(src) + ".json")
+                    if js.exists():
+                        js.replace(Path(str(self._p(f"best_state_top{i}"))
+                                        + ".json"))
+            self._save(self._p("best_state_top1"), state, meta)
+            self._save(self._p("best_state"), state, meta)
+            saved["best"] = True
+
+        if self.save_per_epoch:
+            self._save(self._p(f"model_state_{epoch:06d}"), state, meta)
+            # a last_state here is a stale preemption snapshot
+            for stale in (self.run_dir / "last_state.msgpack",
+                          self.run_dir / "last_state"):
+                if stale.exists():
+                    self._drop(stale)
+                    Path(str(stale) + ".json").unlink(missing_ok=True)
+        else:
+            self._save(self._p("last_state"), state, meta)
+
+        if (self.time_interval_min > 0 and time.time() - self._last_time_save
+                > self.time_interval_min * 60):
+            self._save(self._p(time.strftime("ckpt_%Y%m%d_%H_%M")), state,
+                       meta)
+            self._last_time_save = time.time()
+            for old in sorted(self.run_dir.glob("ckpt_*" + self.SUFFIX))[:-3]:
+                self._drop(old)
+                Path(str(old) + ".json").unlink(missing_ok=True)
+
+        self._log_path.write_text(json.dumps(meta))
+        return saved
+
+    def save_interrupt(self, state: TrainState, epoch_unfinished: int,
+                       lr: float, best_loss: float) -> None:
+        """Preemption snapshot: last_state with the interrupted epoch
+        marked unfinished, so that a resume runs it again; best/top-k
+        stay."""
+        meta = {"epoch": epoch_unfinished - 1, "step": int(state.step),
+                "lr": float(lr), "preempted": True}
+        if best_loss == best_loss and best_loss != float("inf"):
+            meta["loss"] = float(best_loss)
+        self._save(self._p("last_state"), state, meta)
+        self._log_path.write_text(json.dumps(meta))
+
+    def latest(self) -> Optional[Path]:
+        """Resume priority: last_state > newest per-epoch > best."""
+        last = self._existing("last_state")
+        if last is not None:
+            return last
+        epochs = sorted(
+            set(self.run_dir.glob("model_state_*.msgpack"))
+            | {p for p in self.run_dir.glob("model_state_*") if p.is_dir()},
+            key=lambda p: (p.name.removesuffix(".msgpack"),
+                           p.stat().st_mtime))
+        if epochs:
+            return epochs[-1]
+        return self._existing("best_state")
+
+    def best(self) -> Optional[Path]:
+        return self._existing("best_state")
+
+    def resume_meta(self) -> dict:
+        return (json.loads(self._log_path.read_text())
+                if self._log_path.exists() else {})

@@ -1,0 +1,102 @@
+"""The train step (port of ``training/train_step.py::make_train_step``),
+one device.
+
+``step(state, wave, label, lr) -> (state, {"loss", "prec1"})``: the
+model's forward in training mode on ``wave [B, nPerSpeaker, T]`` and
+``label [B]``, the gradient of the loss with respect to the fp32 master
+parameters (the wave is not one: the mel kernel needs no backward), the
+optimizer update at learning rate ``lr``, and the BatchNorm running
+statistics that the forward updated.
+
+``compute_dtype=torch.bfloat16`` runs the forward and backward through
+bf16 copies of the parameters (``torch.func.functional_call``), so the
+gradients land in fp32 on the masters, as the JAX step casts its params;
+the frontend stays fp32 and casts its features (the model's own
+``compute_dtype``, set by ``builder.encoder_from_hparams``).
+
+``accum_steps=k`` splits the batch into k microbatches run one after
+another: each starts from the step's incoming batch statistics, the
+gradients, losses and precisions are averaged over the k, and so are
+the k microbatches' new statistics; one optimizer update follows.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+from torch.func import functional_call
+
+from speakerverification_tpu_torch.optim import (
+    apply_updates,
+    set_learning_rate,
+)
+from speakerverification_tpu_torch.training.state import TrainState
+
+__all__ = ["make_train_step"]
+
+
+def make_train_step(model, tx, compute_dtype: Optional[torch.dtype] = None,
+                    accum_steps: int = 1) -> Callable:
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+
+    def value_and_grads(state: TrainState, wave, label):
+        names = list(state.params)
+        masters = [state.params[k] for k in names]
+        if compute_dtype is None:
+            loss, prec1 = model(wave, label)
+        else:
+            cast = {k: p.to(compute_dtype) if p.is_floating_point() else p
+                    for k, p in zip(names, masters)}
+            loss, prec1 = functional_call(model, cast, (wave, label),
+                                          strict=False)
+        loss = loss.float()
+        grads = torch.autograd.grad(loss, masters, allow_unused=True)
+        # a parameter the loss does not reach gets a zero gradient, as
+        # jax.grad gives it
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(masters, grads)]
+        return loss.detach(), prec1.detach(), dict(zip(names, grads))
+
+    def step(state: TrainState, wave: torch.Tensor, label: torch.Tensor,
+             lr: float):
+        model.train()
+        if accum_steps == 1:
+            loss, prec1, grads = value_and_grads(state, wave, label)
+        else:
+            k = accum_steps
+            if wave.shape[0] % k:
+                raise ValueError(
+                    f"batch of {wave.shape[0]} speaker tuples does not "
+                    f"split into accumulate_steps={k} microbatches")
+            stats = list(state.batch_stats.values())
+            incoming = [s.clone() for s in stats]
+            s_acc = [torch.zeros_like(s, dtype=torch.float32)
+                     for s in stats]
+            grads, loss, prec1 = None, 0.0, 0.0
+            n = wave.shape[0] // k
+            for i in range(k):
+                with torch.no_grad():
+                    torch._foreach_copy_(stats, incoming)
+                l_i, p_i, g_i = value_and_grads(
+                    state, wave[i * n:(i + 1) * n], label[i * n:(i + 1) * n])
+                grads = g_i if grads is None else {
+                    key: grads[key] + g for key, g in g_i.items()}
+                torch._foreach_add_(s_acc, stats)
+                loss, prec1 = loss + l_i, prec1 + p_i
+            inv = 1.0 / k
+            grads = {key: g * inv for key, g in grads.items()}
+            with torch.no_grad():
+                torch._foreach_copy_(stats, torch._foreach_mul(s_acc, inv))
+            loss, prec1 = loss * inv, prec1 * inv
+
+        opt_state = set_learning_rate(state.opt_state, lr)
+        params = {k: p.detach() for k, p in state.params.items()}
+        updates, opt_state = tx.update(grads, opt_state, params)
+        apply_updates(params, updates)
+        state.opt_state = opt_state
+        state.step += 1
+        return state, {"loss": loss, "prec1": prec1}
+
+    return step

@@ -1,0 +1,331 @@
+"""Training orchestration on one device (port of ``training/trainer.py``).
+
+Epochs of train steps (``train_step.make_train_step``) over the
+speaker-balanced loader, the learning rate from the schedule per epoch
+or per iteration, best/top-k/last checkpoints in the JAX package's
+layout (``training/checkpoint.py``) with resume, the ``scores.txt``
+line per epoch, optional validation EER (``test_interval``), early
+stopping, ``settings.txt``, a checkpoint on SIGTERM/SIGINT, and
+TensorBoard scalars when ``tensorboardX`` imports.
+
+The model runs on CUDA unless the caller asks for the CPU. Not ported,
+and refused by name: ``distributed``/``data_parallel``,
+``model_parallel > 1``, ``device_augment``, ``device_time_augment``,
+``profile`` and ``sharded_checkpoints`` (``augment`` and packed shards
+are refused by the loader).
+"""
+
+from __future__ import annotations
+
+import signal
+import time
+from pathlib import Path
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+
+from speakerverification_tpu_torch.builder import (
+    compute_dtype_from_hparams,
+    encoder_from_hparams,
+    optimizer_from_hparams,
+    scheduler_from_hparams,
+)
+from speakerverification_tpu_torch.data.loader import train_data_loader
+from speakerverification_tpu_torch.data.manifest import Manifest
+from speakerverification_tpu_torch.evaluation.evaluator import (
+    evaluate_from_list,
+)
+from speakerverification_tpu_torch.evaluation.metrics import (
+    tune_threshold_from_score,
+)
+from speakerverification_tpu_torch.inference import (
+    make_eval_embed_fn,
+    resolve_device,
+    run_dirs,
+)
+from speakerverification_tpu_torch.optim import EarlyStopping
+from speakerverification_tpu_torch.training.checkpoint import (
+    CheckpointManager,
+    load_checkpoint,
+    load_params_only,
+)
+from speakerverification_tpu_torch.training.state import create_train_state
+from speakerverification_tpu_torch.training.train_step import make_train_step
+
+__all__ = ["Trainer", "run_dirs"]
+
+# keys of the JAX trainer that this one does not take, each with what to
+# do instead
+_REFUSED = {
+    "distributed": "multi-GPU training is not ported yet: train on one GPU",
+    "data_parallel": "multi-GPU training is not ported yet: train on one GPU",
+    "device_augment": "on-device augmentation (ops/device_augment.py) is "
+                      "not ported yet",
+    "device_time_augment": "on-device time augmentation (ops/timeaugment.py) "
+                           "is not ported yet",
+    "profile": "the training profiler trace (profile/profile_dir) is not "
+               "ported",
+    "sharded_checkpoints": "orbax sharded checkpoints are not ported: the "
+                           "port writes msgpack checkpoints",
+}
+
+
+class Trainer:
+    def __init__(self, hparams: Mapping, device=None):
+        self.hparams = dict(hparams)
+        for key, why in _REFUSED.items():
+            if self.hparams.get(key):
+                raise NotImplementedError(f"{key}: {why}")
+        if int(self.hparams.get("model_parallel", 1) or 1) > 1:
+            raise NotImplementedError(
+                "model_parallel > 1 (the class-sharded head) is not ported "
+                "yet: train on one GPU")
+        self.device = resolve_device(device)
+        self.dirs = run_dirs(self.hparams)
+
+        self.loader = train_data_loader(self.hparams)
+        if self.loader.manifest.num_classes != int(
+                self.hparams.get("nClasses", 0)):
+            print(f"[WARN] nClasses={self.hparams.get('nClasses')} in config "
+                  f"but {self.loader.manifest.num_classes} speakers in "
+                  f"manifest; using the manifest count")
+            self.hparams["nClasses"] = self.loader.manifest.num_classes
+
+        self.model = encoder_from_hparams(self.hparams, with_loss=True).to(
+            self.device)
+        self.tx = optimizer_from_hparams(self.hparams)
+        self.steps_per_epoch = max(len(self.loader), 1)
+        self.schedule, self.lr_unit = scheduler_from_hparams(
+            self.hparams, self.steps_per_epoch)
+        self._compute_dtype = compute_dtype_from_hparams(self.hparams)
+        self.accum_steps = int(self.hparams.get("accumulate_steps", 1))
+        if self.accum_steps > 1:
+            if int(self.hparams.get("batch_size", 0)) % self.accum_steps:
+                raise ValueError(
+                    f"accumulate_steps={self.accum_steps} must divide "
+                    f"batch_size {self.hparams.get('batch_size')}")
+            print(f"[INFO] gradient accumulation: {self.accum_steps} "
+                  "microbatches per optimizer step")
+        self.step_fn = make_train_step(self.model, self.tx,
+                                       compute_dtype=self._compute_dtype,
+                                       accum_steps=self.accum_steps)
+
+        self.ckpt = CheckpointManager(
+            self.dirs["model"], top_k=3,
+            save_per_epoch=not self.hparams.get("save_model_last", True),
+            time_interval_min=float(self.hparams.get("ckpt_interval_minutes",
+                                                     -1)))
+        self.early_stopping: Optional[EarlyStopping] = None
+        if self.hparams.get("early_stopping"):
+            self.early_stopping = EarlyStopping(
+                patience=int(self.hparams.get("es_patience", 15)))
+
+        with open(self.dirs["result"] / "settings.txt", "a") as f:
+            f.write(f"\n[{time.strftime('%Y-%m-%d %H:%M:%S')}]\n")
+            for k in sorted(self.hparams):
+                f.write(f"{k}: {self.hparams[k]!r}\n")
+
+        self._writer = None
+        try:
+            from tensorboardX import SummaryWriter
+            runs = self.dirs["result"] / "runs"
+            runs.mkdir(exist_ok=True)
+            self._writer = SummaryWriter(log_dir=str(runs))
+        except ImportError:
+            pass
+
+        self.state = None
+        self._preempt = False
+        self.init_epoch = 1
+        self.min_loss = float("inf")
+        self.min_eer = float("inf")
+
+    # ------------------------------------------------------------------
+    def _init_state(self) -> None:
+        self.state = create_train_state(self.model, self.tx,
+                                        int(self.hparams.get("seed", 0)))
+        # resume: configured pretrained > this run's latest > scratch
+        resume = None
+        pre = self.hparams.get("pretrained", {}) or {}
+        if pre.get("use") and pre.get("path") and Path(
+                str(pre["path"])).exists():
+            resume = Path(str(pre["path"]))
+        elif self.ckpt.latest() is not None:
+            resume = self.ckpt.latest()
+        if resume is None:
+            return
+        try:
+            self.state = load_checkpoint(resume, self.state)
+        except ValueError:
+            # written under another optimizer: restore the weights only
+            self.state = load_params_only(resume, self.state)
+            print("[WARN] optimizer state in checkpoint incompatible — "
+                  "restored weights only")
+        meta = self.ckpt.resume_meta()
+        self.init_epoch = int(meta.get("epoch", 0)) + 1
+        self.min_loss = min(float(meta.get("loss", float("inf"))),
+                            self.ckpt._best_loss)
+        print(f"[INFO] resumed from {resume} at epoch {self.init_epoch}")
+
+    def _lr(self, epoch: int, it: int, global_it: int) -> float:
+        if self.lr_unit == "iteration":
+            return float(self.schedule(global_it))
+        if self.lr_unit == "epoch":
+            return float(self.schedule(epoch - 1))
+        return float(self.schedule.lr)          # plateau: the current lr
+
+    # ------------------------------------------------------------------
+    def train_epoch(self, epoch: int) -> tuple[float, float]:
+        self.loader.set_epoch(epoch)
+        losses, accs = [], []
+        t0 = time.time()
+        n_utts = 0
+        for it, batch in enumerate(self.loader):
+            if self._preempt:
+                break
+            lr = self._lr(epoch, it, (epoch - 1) * self.steps_per_epoch + it)
+            wave = torch.from_numpy(batch["wave"]).to(self.device)
+            label = torch.from_numpy(batch["label"]).to(self.device)
+            self.state, metrics = self.step_fn(self.state, wave, label, lr)
+            losses.append(metrics["loss"])
+            accs.append(metrics["prec1"])
+            n_utts += batch["wave"].shape[0] * batch["wave"].shape[1]
+        # one device sync per epoch
+        loss = float(torch.stack(losses).mean()) if losses else float("nan")
+        acc = float(torch.stack(accs).mean()) if accs else float("nan")
+        dt = time.time() - t0
+        print(f"[E{epoch:03d}] loss {loss:.4f} acc {acc:5.2f}% "
+              f"lr {self._lr(epoch, 0, (epoch - 1) * self.steps_per_epoch):.2e} "
+              f"({n_utts / max(dt, 1e-9):.1f} utt/s, {dt:.3f} s)")
+        return loss, acc
+
+    def _validation_trials(self) -> Path:
+        """A trial list from the dev manifest: each dev utterance in one
+        same-speaker and one different-speaker trial."""
+        trial_path = self.dirs["result"] / "validation_trials.txt"
+        m = Manifest.read(self.hparams["valid_annotation"])
+        by_spk: dict[int, list[str]] = {}
+        for path, lab in zip(m.paths, m.labels):
+            by_spk.setdefault(lab, []).append(path)
+        rng = np.random.default_rng(int(self.hparams.get("seed", 0)))
+        speakers = sorted(by_spk)
+        lines = []
+        for s in speakers:
+            files = by_spk[s]
+            for i, f in enumerate(files):
+                if len(files) > 1:
+                    lines.append(f"1 {f} {files[(i + 1) % len(files)]}")
+                other = speakers[(speakers.index(s) + 1
+                                  + int(rng.integers(max(len(speakers) - 1,
+                                                         1)))
+                                  ) % len(speakers)]
+                if other != s and by_spk[other]:
+                    neg = by_spk[other][int(rng.integers(len(by_spk[other])))]
+                    lines.append(f"0 {f} {neg}")
+        trial_path.write_text("\n".join(lines) + "\n")
+        return trial_path
+
+    def validate(self) -> float:
+        """EER (%) of the model's embeddings on ``valid_annotation`` (a
+        trial list, or a dev manifest made into one), scored as
+        ``scoring_mode`` says (cosine where a cohort bank is missing)."""
+        normalize = bool(getattr(self.model.loss, "test_normalize", True))
+        embed = make_eval_embed_fn(self.model, normalize=normalize,
+                                   compute_dtype=self._compute_dtype)
+        va = str(self.hparams["valid_annotation"])
+        listfile = self._validation_trials() if va.endswith(".csv") else va
+        mode = str(self.hparams.get("scoring_mode", "cosine"))
+        cohorts = None
+        if mode in ("norm", "zt_norm"):
+            cp = self.hparams.get("cohorts_path")
+            if cp and Path(str(cp)).exists():
+                cohorts = np.load(str(cp))
+            else:
+                print(f"[WARN] scoring_mode={mode} but no cohort bank at "
+                      f"{cp!r}; validating with cosine")
+                mode = "cosine"
+        sc, lab, _ = evaluate_from_list(
+            embed, listfile, self.hparams["audio_spec"],
+            num_eval=int(self.hparams.get("num_eval", 10)),
+            scoring_mode=mode, cohorts=cohorts, normalize=False)
+        return tune_threshold_from_score(sc, lab, [1, 0.1])["roc"][1]
+
+    # ------------------------------------------------------------------
+    def fit(self) -> dict:
+        """Train ``number_of_epochs`` epochs. SIGTERM or SIGINT checkpoints
+        the unfinished epoch and stops; a second one aborts."""
+        n_epochs = int(self.hparams.get("number_of_epochs", 1))
+        score_path = self.dirs["result"] / "scores.txt"
+        test_interval = int(self.hparams.get("test_interval", -1) or -1)
+        self._preempt = False
+        old_handlers = {}
+
+        def on_term(signum, frame):
+            if self._preempt:
+                for s, h in old_handlers.items():
+                    signal.signal(s, h)
+                raise KeyboardInterrupt
+            self._preempt = True
+            print(f"[WARN] caught signal {signum} — will checkpoint and "
+                  "stop after the current step (send again to abort "
+                  "immediately)", flush=True)
+
+        try:
+            for s in (signal.SIGTERM, signal.SIGINT):
+                old_handlers[s] = signal.signal(s, on_term)
+        except ValueError:
+            pass        # not the main thread
+        try:
+            return self._fit(n_epochs, score_path, test_interval)
+        finally:
+            for s, h in old_handlers.items():
+                signal.signal(s, h)
+
+    def _fit(self, n_epochs: int, score_path: Path,
+             test_interval: int) -> dict:
+        self._init_state()
+        for epoch in range(self.init_epoch, n_epochs + 1):
+            loss, acc = self.train_epoch(epoch)
+            if self._preempt:
+                # a partial epoch: resume runs it again; best/top-k and
+                # scores stay
+                self.ckpt.save_interrupt(
+                    self.state, epoch,
+                    lr=self._lr(epoch, 0, (epoch - 1) * self.steps_per_epoch),
+                    best_loss=self.min_loss)
+                print(f"[INFO] preemption checkpoint written (epoch {epoch} "
+                      "unfinished) — exiting")
+                break
+            lr_now = self._lr(epoch, 0, epoch * self.steps_per_epoch)
+            if self.lr_unit == "plateau":
+                self.schedule(loss)
+            improved = loss < self.min_loss
+            if improved:
+                self.min_loss = loss
+
+            line = (f"epoch {epoch}, LR {lr_now:.8f}, TEER/TAcc {acc:2.2f}, "
+                    f"TLOSS {loss:f}")
+            if test_interval > 0 and epoch % test_interval == 0 and \
+                    self.hparams.get("valid_annotation"):
+                veer = self.validate()
+                self.min_eer = min(self.min_eer, veer)
+                line += f", VEER {veer:2.4f}, MINEER {self.min_eer:2.4f}"
+            with open(score_path, "a") as f:
+                f.write(line + "\n")
+            self.ckpt.save_epoch(self.state, epoch, loss, lr_now)
+            if self._writer is not None:
+                self._writer.add_scalar("Loss/train", loss, epoch)
+                self._writer.add_scalar("Accuracy/train", acc, epoch)
+                self._writer.add_scalar("Params/learning_rate", lr_now, epoch)
+
+            if self.early_stopping is not None:
+                if improved:
+                    self.early_stopping.counter = 0
+                if self.early_stopping(loss):
+                    print("[INFO] early stopping")
+                    break
+        if self._writer is not None:
+            self._writer.close()
+        return {"min_loss": self.min_loss, "min_eer": self.min_eer,
+                "state": self.state}

@@ -9,8 +9,9 @@ leaves change layout:
 * Dense ``kernel [in, out]`` → Linear ``weight [out, in]``;
 * BatchNorm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` →
   ``weight``/``bias``/``running_mean``/``running_var``;
-* ``input_norm_*``, ``inorm_*``, ``low_hz``/``band_hz`` and AFMS
-  ``alpha`` keep their names.
+* ``input_norm_*``, ``inorm_*``, ``low_hz``/``band_hz``, AFMS
+  ``alpha`` and the loss heads' ``W``/``weight`` (under ``loss``) keep
+  their names and layouts.
 
 :func:`params_to_jax` is its inverse: a ``state_dict`` back to flax
 ``params``/``batch_stats`` numpy trees, which ``checkpoint.py`` writes
@@ -18,8 +19,9 @@ in the JAX package's msgpack layout. The round trip through both gives
 the ``state_dict`` back bit for bit.
 
 :func:`init_weights_` gives a module random weights from a seeded
-generator (lecun-normal, as flax initializes), for a model served
-without a weights file. :func:`cast_copy` makes the low-precision copy
+generator, drawn from the distributions flax initializes with (the
+draws differ), for a model trained from scratch or served without a
+weights file. :func:`cast_copy` makes the low-precision copy
 an embed function runs, and :func:`act_scales_from_jax` carries the JAX
 package's int8 activation scales over.
 """
@@ -38,7 +40,11 @@ __all__ = ["params_from_jax", "params_to_jax", "init_weights_", "cast_copy",
            "act_scales_from_jax"]
 
 _SAME_NAME = {"alpha", "low_hz", "band_hz", "inorm_scale", "inorm_bias",
-              "input_norm_scale", "input_norm_bias"}
+              "input_norm_scale", "input_norm_bias", "W"}
+# the loss heads' own matrices (AmSoftmax/ARmSoftmax ``W [nOut,
+# nClasses]``, AAmSoftmax ``weight [nClasses, nOut]``) at the encoder's
+# ``loss`` scope: stored as they are, not as a Dense kernel
+_HEAD_LEAVES = {"loss.W", "loss.weight"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -84,7 +90,7 @@ def params_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None,
         elif name == "scale":
             state[key.format("weight")] = arr
             bn_scopes.add(scope)
-        elif name in _SAME_NAME:
+        elif name in _SAME_NAME or ".".join(path) in _HEAD_LEAVES:
             state[key.format(name)] = arr
         else:
             raise KeyError(f"flax leaf {'/'.join(path)} has no port "
@@ -139,7 +145,9 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> tuple[dict, dict]:
         bn = f"{scope}.running_mean" in state
         if name == "num_batches_tracked":
             continue
-        if bn and name in ("running_mean", "running_var"):
+        if key in _HEAD_LEAVES:
+            _nest(params, key, arr.copy())
+        elif bn and name in ("running_mean", "running_var"):
             _nest(stats, f"{scope}.{name[len('running_'):]}", arr.copy())
         elif bn and name == "weight":
             _nest(params, f"{scope}.scale", arr.copy())
@@ -155,18 +163,40 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> tuple[dict, dict]:
     return params, stats
 
 
+def _truncated_normal_(w: torch.Tensor, std: float,
+                       generator: torch.Generator) -> None:
+    """flax's truncated normal: a standard normal cut at ±2, scaled so
+    that the variance is ``std²`` (1/.8796… undoes the cut's shrink)."""
+    t = torch.empty(w.shape)
+    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    w.copy_((t * (std / .87962566103423978)).to(w.device, w.dtype))
+
+
 @torch.no_grad()
 def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Random conv/linear weights (normal, variance 1/fan_in) and zero
-    biases from ``generator`` (a CPU generator); BatchNorm and the
-    sinc/AFMS/norm parameters keep their constructed values."""
+    """Draw ``module``'s weights from ``generator`` (a CPU generator) as
+    flax initializes the JAX modules: conv and Dense kernels
+    ``lecun_normal`` (a truncated normal of variance 1/fan_in), biases
+    zero, BatchNorm scale 1 and bias 0 with running mean 0 and variance
+    1, the loss heads' matrices (``xavier_normal_params``)
+    ``xavier_normal``; the sinc, AFMS and norm parameters keep their
+    constructed values, which are flax's."""
     for m in module.modules():
         if isinstance(m, (nn.Conv1d, nn.Linear)):
             fan_in = m.weight[0].numel()
-            w = torch.randn(m.weight.shape, generator=generator) / fan_in ** 0.5
-            m.weight.copy_(w.to(m.weight.device, m.weight.dtype))
+            _truncated_normal_(m.weight, fan_in ** -0.5, generator)
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm1d):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+        for name in getattr(m, "xavier_normal_params", ()):
+            w = getattr(m, name)
+            std = (2.0 / (w.shape[0] + w.shape[1])) ** 0.5
+            w.copy_((torch.randn(w.shape, generator=generator) * std)
+                    .to(w.device, w.dtype))
     return module
 
 

@@ -36,7 +36,12 @@ def test_port_imports_no_jax_and_no_jax_package():
                      "quant", "ops.quant_matmul", "data.loader",
                      "evaluation.metrics", "evaluation.scoring",
                      "evaluation.reports", "evaluation.evaluator",
-                     "evaluation.bank", "checkpoint", "cli.main"):
+                     "evaluation.bank", "checkpoint", "cli.main",
+                     "losses", "losses.common", "losses.margin",
+                     "losses.margin_extra", "optim", "optim.custom",
+                     "optim.schedulers", "training", "training.state",
+                     "training.train_step", "training.checkpoint",
+                     "training.trainer", "data.manifest", "data.sampler"):
         assert f"speakerverification_tpu_torch.{expected}" in res["modules"]
     loaded = res["loaded"]
     # the GPU host has neither msgpack, ml_dtypes nor PyYAML: the codec is

@@ -147,6 +147,29 @@ def test_mel_kernel_rejects_too_many_mels(cuda):
         mf.mel_frontend(padded, cs, fb, cfg.hop_length, window_rows(cfg))
 
 
+def test_mel_kernel_refuses_a_wave_that_needs_a_gradient():
+    """K1 has no backward: the check the CUDA path runs before a launch,
+    exercised here on CPU tensors (a train step's wave needs no
+    gradient, and passes)."""
+    wave = torch.zeros(2, 600, requires_grad=True)
+    with pytest.raises(ValueError, match="no backward"):
+        mf.refuse_grad(wave)
+    with torch.no_grad():
+        mf.refuse_grad(wave)
+    mf.refuse_grad(wave.detach())
+
+
+@pytest.mark.cuda
+def test_mel_kernel_raises_on_a_cuda_wave_that_needs_a_gradient(cuda):
+    frontend = mf.make_mel_frontend(CONFIGS["8k"])
+    wave = torch.zeros(2, 16000, device=cuda, requires_grad=True)
+    before = mf.launches
+    with pytest.raises(ValueError, match="no backward"):
+        frontend(wave)
+    assert mf.launches == before
+    assert frontend(wave.detach()).shape == (2, 201, 80)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dilation", [2, 3, 4])

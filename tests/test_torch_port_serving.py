@@ -319,5 +319,6 @@ def test_chip_smoke_hparams_mirror_the_yaml():
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     for name, h in (("raw3_ecapa.yaml", smoke.RAW3_ECAPA_HPARAMS),
+                    ("raw3_ecapa.yaml", smoke.RAW3_TRAIN_HPARAMS),
                     ("ecapa_tdnn.yaml", smoke.ECAPA_TDNN_HPARAMS)):
         _subset_of(h, jconfig.read_config(ROOT / "yaml" / name), f"{name}: ")
