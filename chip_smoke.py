@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port (``speakerverification_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA device
+    python3 chip_smoke.py --f2-conv  # only F2's step under each remedy of
+                                     # its FFT convolution gradient
 
 Phases, each of which fails the run:
   1. build the hand-written kernels from ``speakerverification_tpu_torch/csrc``
@@ -30,12 +32,22 @@ Phases, each of which fails the run:
      the full batch (64 crops of 2 s) in fp32, bf16 and with
      accumulate_steps 2, timed and profiled; E3 learning on one fixed
      batch; E4 ``--do_train`` through the CLI on a synthetic manifest,
-     then ``--do_infer --eval`` of the trained checkpoint.
+     then ``--do_infer --eval`` of the trained checkpoint;
+  9. path F: the RawNet2 family at full width, 16 kHz, 2 s crops
+     (``yaml/voxceleb_raw_ecapa.yaml``): F1 Raw_ECAPA_conv_asp behind the
+     HTTP app, timed and profiled at the serving batch (8 x 20 crops);
+     F2 its train step with AAmSoftmaxAP over 17,982 classes and
+     AdaBelief: the gradient against the CPU's by branch, the 64-crop
+     step timed and profiled in fp32 and bf16, learning on one batch; F3
+     every other builder of the family (Raw_ECAPA, Raw_ECAPA_sinc_gru,
+     RawNet2_custom, Raw_ECAPA_sinc_asp, Raw_ECAPA_hype, RawNet2) against
+     the CPU; F4 ``--do_train`` then ``--do_infer --eval`` through the CLI.
 Every path is compared with the same model's plain path on the CPU.
 
 The script imports nothing of the JAX package. hparams are built in code
-(they mirror ``yaml/raw3_ecapa.yaml`` and ``yaml/ecapa_tdnn.yaml``, which
-a CPU test checks). The last line of standard output is the JSON result.
+(they mirror ``yaml/raw3_ecapa.yaml``, ``yaml/ecapa_tdnn.yaml``,
+``yaml/voxceleb_raw_ecapa.yaml`` and the yamls of path F3, which a CPU
+test checks). The last line of standard output is the JSON result.
 """
 
 from __future__ import annotations
@@ -94,6 +106,64 @@ RAW3_TRAIN_HPARAMS = {
     "save_model_last": True, "ckpt_interval_minutes": -1,
     "test_interval": -1,
 }
+# the keys of yaml/voxceleb_raw_ecapa.yaml (path F: the RawNet2 family's
+# hybrid Raw_ECAPA_conv_asp and the AAmSoftmaxAP head; the same test
+# holds them against the file)
+RAW_ECAPA_HPARAMS = {
+    "seed": 20220829,
+    "audio_spec": {"sample_rate": 16000, "channels": 1, "sentence_len": 2.0,
+                   "win_len": 0.025, "hop_len": 0.01},
+    "n_mfcc": 80, "n_mels": 80, "features": "raw",
+    "model": {"name": "Raw_ECAPA_conv_asp", "feature_type": "raw",
+              "nOut": 512},
+    "num_eval": 20,
+    "number_of_epochs": 500, "batch_size": 32, "lr": 0.003,
+    "base_lr": 1e-8, "max_lr": 0.003, "step_size": 10, "shuffle": False,
+    "random_chunk": True, "nClasses": 17982,
+    "dataloader_options": {"batch_size": 32, "shuffle": False,
+                           "num_workers": 8, "max_seg_per_spk": 1000,
+                           "nPerSpeaker": 2, "split_ratio": -1},
+    "criterion": {"name": "AAmSoftmaxAP", "margin": 0.25, "scale": 30},
+    "optimizer": {"name": "AdaBelief", "weight_decay": 0.00002,
+                  "lr_decay": 0.95},
+    "callbacks": {"name": "cosine_annealinglr_pt", "base_lr": 1e-8,
+                  "max_lr": 0.003},
+    "early_stopping": False, "es_patience": 15, "augment": False,
+    "save_model_last": True, "ckpt_interval_minutes": -1,
+    "test_interval": -1,
+}
+
+
+def _variant(seed: int, model: str, sr: int, seconds: float,
+             criterion: dict) -> dict:
+    return {"seed": seed,
+            "audio_spec": {"sample_rate": sr, "channels": 1,
+                           "sentence_len": seconds, "win_len": 0.025,
+                           "hop_len": 0.01},
+            "n_mfcc": 80, "n_mels": 80, "features": "raw",
+            "model": {"name": model, "feature_type": "raw", "nOut": 512},
+            "num_eval": 20, "criterion": criterion}
+
+
+AAMAP = {"name": "AAmSoftmaxAP", "margin": 0.2, "scale": 30}
+# path F3: the family's other builders, each with the keys of the yaml that
+# names it (the same test holds them against the file); a builder no yaml
+# names takes voxceleb_raw_ecapa.yaml's
+F3_VARIANTS = [
+    ("verification.yaml", _variant(8888, "Raw_ECAPA", 8000, 1.0,
+                                   {"name": "ARmSoftmax", "margin": 0.2,
+                                    "scale": 30})),
+    ("dataprep.yaml", _variant(20220928, "Raw_ECAPA_sinc_gru", 16000, 2.0,
+                               AAMAP)),
+    ("vlsp_rawnet2.yaml", _variant(20220808, "RawNet2_custom", 16000, 2.0,
+                                   AAMAP)),
+    ("voxceleb_raw_ecapa.yaml", {**RAW_ECAPA_HPARAMS, "model": {
+        **RAW_ECAPA_HPARAMS["model"], "name": "Raw_ECAPA_sinc_asp"}}),
+    ("voxceleb_raw_ecapa.yaml", {**RAW_ECAPA_HPARAMS, "model": {
+        **RAW_ECAPA_HPARAMS["model"], "name": "Raw_ECAPA_hype"}}),
+    ("voxceleb_raw_ecapa.yaml", {**RAW_ECAPA_HPARAMS, "model": {
+        **RAW_ECAPA_HPARAMS["model"], "name": "RawNet2"}}),
+]
 BATCH_UTTS = 8          # the serving default (serving.batch_utts)
 
 
@@ -177,6 +247,12 @@ def check_mel_kernel(dev, gen):
                8 * 10, 32000),
               # path E's train step: 32 speakers x 2 crops of 2 s
               ("raw3_ecapa 8k train", FrontendConfig(), 32 * 2, 16000),
+              # path F: Raw_ECAPA_conv_asp's mel branch at 16 kHz, serving
+              # (8 utterances x 20 crops) and the train step, crops of 2 s
+              ("raw_ecapa 16k", FrontendConfig.from_hparams(
+                  dict(RAW_ECAPA_HPARAMS), "melspectrogram"), 8 * 20, 32000),
+              ("raw_ecapa 16k train", FrontendConfig.from_hparams(
+                  dict(RAW_ECAPA_HPARAMS), "melspectrogram"), 32 * 2, 32000),
               # an odd window (its centre is n_fft/2 - 1/2): the kernel's
               # unfolded route; no configuration of the repo uses one
               ("raw3_ecapa 8k win201", FrontendConfig(win_length=201),
@@ -685,8 +761,12 @@ def http(port: int, method: str, path: str, obj=None):
         conn.close()
 
 
-def path_a(card: str) -> dict:
-    """Raw3_ECAPA at full width behind the HTTP serving app."""
+def serve_over_http(tag: str, model_h: dict, bn_seed: int,
+                    device=None) -> dict:
+    """A model at full width behind the HTTP serving app (``/healthz``,
+    8 concurrent ``/embed``, ``/score``), its replies held against the
+    CPU's plain path on the requests' own crops; the mel kernel counted
+    once per served batch."""
     from concurrent.futures import ThreadPoolExecutor
     from http.server import ThreadingHTTPServer
     import threading
@@ -701,13 +781,15 @@ def path_a(card: str) -> dict:
         make_serving_app,
     )
 
-    h = {**RAW3_ECAPA_HPARAMS,
+    h = {**model_h,
          "serving": {"batch_utts": BATCH_UTTS, "max_wait_ms": 200}}
-    engine = InferenceEngine(h)                  # device=None: CUDA
-    randomize_bn_(engine.model, seed=1)
+    engine = InferenceEngine(h, device=device)   # device=None: CUDA
+    randomize_bn_(engine.model, seed=bn_seed)
+    dim = h["model"]["nOut"]
     n_params = sum(p.numel() for p in engine.model.parameters())
-    log(f"[A] Raw3_ECAPA on {engine.device}: {n_params / 1e6:.2f} M params, "
-        f"frontend_backend auto, conv_backend xla (as in JAX)")
+    log(f"[{tag}] {h['model']['name']} on {engine.device}: "
+        f"{n_params / 1e6:.2f} M params, frontend_backend auto, "
+        f"conv_backend xla (as in JAX)")
     sr = h["audio_spec"]["sample_rate"]
     num_eval = h["num_eval"]
     rng = np.random.default_rng(2)
@@ -754,52 +836,57 @@ def path_a(card: str) -> dict:
     served = []
     for st, out in replies:
         emb = np.asarray(out.get("embedding", []), np.float64)
-        if st != 200 or out.get("dim") != 512 or emb.shape != (512,) \
+        if st != 200 or out.get("dim") != dim or emb.shape != (dim,) \
                 or not np.isfinite(emb).all() \
                 or abs(np.linalg.norm(emb) - 1.0) > 1e-4:
             fail(f"/embed reply wrong: status {st}, dim {out.get('dim')}")
         served.append(emb)
     if status != 200 or not np.isfinite(score.get("score", np.nan)):
         fail(f"/score returned {status} {score}")
-    log(f"[A] /healthz ok; {len(replies)} concurrent /embed: dim 512, unit "
+    log(f"[{tag}] /healthz ok; {len(replies)} concurrent /embed: dim {dim}, unit "
         f"norm, finite, {t_embed:.3f} s wall; /score {score['score']:.6f}")
-    log(f"[A] launches in the served window: {counts} over {batches} "
+    log(f"[{tag}] launches in the served window: {counts} over {batches} "
         f"batches of {BATCH_UTTS}x{num_eval} crops")
     if counts["mel_frontend"] != batches or batches < 2:
-        fail(f"path A: mel kernel launched {counts['mel_frontend']} times "
+        fail(f"path {tag}: mel kernel launched {counts['mel_frontend']} times "
              f"for {batches} batches")
     if counts["res2net_cascade"] != 0 or counts["quant_matmul"] != 0:
-        fail("path A: the float hybrid ran the cascade or int8 kernel "
+        fail(f"path {tag}: the float hybrid ran the cascade or int8 kernel "
              "(conv_backend defaults to xla, no quant)")
 
     # the requests' own crops, one serving batch, on the card and the CPU
     crops = [load_wav(x, h["audio_spec"], num_eval=num_eval) for x in pcm]
     ref, dist = compare_with_cpu(engine, to_wire(np.concatenate(crops)),
-                                 "A")
+                                 tag)
     ref = ref.reshape(BATCH_UTTS, num_eval, -1)
     utt_ref = np.stack([_utt_embedding(r) for r in ref])      # [U, D]
     cos = np.stack(served) @ utt_ref.T                        # [reply, ref]
     own = np.diag(cos)
     other = np.max(cos - 2 * np.eye(BATCH_UTTS), axis=1)
     ok = own.min() >= 0.9999 and bool(np.all(own > other))
-    log(f"[A] each /embed reply vs the CPU mean embedding of its own crops: "
+    log(f"[{tag}] each /embed reply vs the CPU mean embedding of its own crops: "
         f"min cos {own.min():.7f} (need >= 0.9999); best other request "
         f"{other.max():.7f} {'ok' if ok else 'FAIL'}")
     if not ok:
-        fail("path A: a served embedding is not its request's")
+        fail(f"path {tag}: a served embedding is not its request's")
     # |e1.e2 - e1'.e2'| <= |e1 - e1'| + |e2 - e2'| for unit crop
     # embeddings; twice that for the other batch the score rode in
     score_ref = _pair_cosine(ref[0], ref[1])
     tol = 4 * dist
     ok = abs(score["score"] - score_ref) <= tol
-    log(f"[A] /score {score['score']:.7f} vs CPU pair cosine {score_ref:.7f}: "
+    log(f"[{tag}] /score {score['score']:.7f} vs CPU pair cosine {score_ref:.7f}: "
         f"diff {abs(score['score'] - score_ref):.3e} (tol {tol:.3e}) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        fail("path A: /score disagrees with the CPU")
+        fail(f"path {tag}: /score disagrees with the CPU")
     return {"engine": engine, "counts": counts, "batches": batches,
             "n_crops": BATCH_UTTS * num_eval,
             "samples": int(h["audio_spec"]["sentence_len"] * sr)}
+
+
+def path_a(card: str) -> dict:
+    """Raw3_ECAPA at full width behind the HTTP serving app."""
+    return serve_over_http("A", RAW3_ECAPA_HPARAMS, bn_seed=1)
 
 
 def path_b() -> dict:
@@ -1546,13 +1633,15 @@ def profile(label: str, engine, waves, fn=None, top: int = 12,
             host: bool = False) -> None:
     """Device time by kernel over three forwards (torch.profiler), or
     over three calls of ``fn``; with ``host``, also the host's: aten
-    operators per call and those with the most self time."""
+    operators per call and those with the most self time, and the
+    convolution gradients with the most device time, by input shapes."""
     import torch
     from torch.profiler import ProfilerActivity, profile as prof
     fn = fn or (lambda: engine.embed_fn(waves))
     fn()
     torch.cuda.synchronize()
-    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+              record_shapes=host) as p:
         t0 = time.time()
         for _ in range(3):
             fn()
@@ -1588,6 +1677,16 @@ def profile(label: str, engine, waves, fn=None, top: int = 12,
                         reverse=True)[:6]:
             log(f"[{label} profile] host {e.self_cpu_time_total / 3 / 1e3:8.3f}"
                 f" ms/call self {e.count // 3:5d}x  {e.key}")
+
+        def total_dev_us(e):
+            return getattr(e, "device_time_total",
+                           getattr(e, "cuda_time_total", 0.0))
+        convs = [e for e in p.key_averages(group_by_input_shape=True)
+                 if e.key == "aten::convolution_backward"]
+        for e in sorted(convs, key=total_dev_us, reverse=True)[:4]:
+            log(f"[{label} profile] conv backward "
+                f"{total_dev_us(e) / 3 / 1e3:8.3f} ms/call {e.count // 3:3d}x "
+                f"grad, input, weight {e.input_shapes[:3]}")
     # the port's kernels by their function names in csrc/
     for name, tag in (("K1", "mel_kernel"), ("K2", "cascade_kernel"),
                       ("K3", "qmm_")):
@@ -1607,7 +1706,8 @@ def profile(label: str, engine, waves, fn=None, top: int = 12,
 # undone by the log-magnitude's mean over time and the band-pass sinc):
 # both devices move them on rounding noise alone, so update cosines leave
 # them out
-E_DEVICE = "cuda"       # tests/test_torch_port_train_smoke.py sets "cpu"
+# paths E and F run here; tests/test_torch_port_train_smoke.py sets "cpu"
+E_DEVICE = "cuda"
 ZERO_GRAD = ("AttentiveStatisticsPooling_0.Conv1d_0.Conv_0.bias",
              "raw_branch.Conv_2.bias", "raw_branch.BatchNorm_0.bias",
              "raw_branch.inorm_scale", "raw_branch.inorm_bias")
@@ -1678,11 +1778,12 @@ def seeded_batch(seed: int, n_spk: int, n_per: int, h: dict):
     return wave, label
 
 
-def update_cosine(after, before, ref_after) -> tuple[float, float, str]:
-    """Cosine between two updates over all parameters but ``ZERO_GRAD``,
+def update_cosine(after, before, ref_after,
+                  zero_grad=ZERO_GRAD) -> tuple[float, float, str]:
+    """Cosine between two updates over all parameters but ``zero_grad``,
     and the lowest per-tensor cosine with its name."""
     import torch
-    keep = [k for k in before if not k.endswith(ZERO_GRAD)]
+    keep = [k for k in before if not k.endswith(zero_grad)]
     a = torch.cat([(after[k].detach().cpu() - before[k]).double().ravel()
                    for k in keep])
     b = torch.cat([(ref_after[k].detach().cpu() - before[k]).double().ravel()
@@ -1714,9 +1815,9 @@ def loss_grads(state, wave, label) -> dict:
             for k, g in zip(names, grads)}
 
 
-def branch_cosines(got: dict, want: dict) -> dict:
+def branch_cosines(got: dict, want: dict, zero_grad=ZERO_GRAD) -> dict:
     """Cosine of two gradient trees over each branch's parameters (all
-    but ``ZERO_GRAD``): the ECAPA half (fed by K1), the raw branch, the
+    but ``zero_grad``): the ECAPA half (fed by K1), the raw branch, the
     loss head."""
     out = {}
     for branch in ("backbone.ecapa.", "backbone.raw_branch.", "loss."):
@@ -1726,19 +1827,19 @@ def branch_cosines(got: dict, want: dict) -> dict:
             branch = "backbone.ecapa."
         zeros = {k: 0 * want[k].detach().cpu() for k in keys}
         cos, worst, name = update_cosine({k: got[k] for k in keys}, zeros,
-                                         {k: want[k] for k in keys})
+                                         {k: want[k] for k in keys},
+                                         zero_grad)
         out[branch.rstrip(".")] = {"cos": cos, "lowest": worst,
                                    "lowest_at": name}
     return out
 
 
-def path_e1(h) -> dict:
-    """Three fp32 train steps of the default stack (4 speakers x 2 crops of
-    2 s) on the card and on the CPU's plain path, each from the same state
-    (the CPU's, copied to the card before the step); first the gradient
-    of the loss at the initial state on both."""
+def gradient_check(h, tag: str, bars: dict, zero_grad=ZERO_GRAD):
+    """The gradient of the training loss (4 speakers x 2 crops) at one
+    state, the CPU's copied to the card, on the card and on the CPU's
+    plain path: each branch's cosine must reach its bar in ``bars``.
+    Returns both states with their steps, and the card's launches."""
     import torch
-    lr = h["lr"]
     cpu, cpu_step = train_state(h, "cpu")
     card, card_step = train_state(h, E_DEVICE)
     copy_state(cpu, card)
@@ -1748,10 +1849,34 @@ def path_e1(h) -> dict:
                         torch.from_numpy(label).to(E_DEVICE))
     counts = read_counts()
     g_cpu = loss_grads(cpu, torch.from_numpy(wave), torch.from_numpy(label))
-    grad = branch_cosines(g_card, g_cpu)
-    log(f"[E1 gradient] card vs CPU at the initial state, by branch "
-        f"(bars: ecapa 0.999, raw_branch 0.95, loss 0.999): "
-        + json.dumps(grad))
+    grad = branch_cosines(g_card, g_cpu, zero_grad)
+    ok = all(v["cos"] >= bars[k] for k, v in grad.items())
+    log(f"[{tag} gradient] card vs CPU at the initial state, by branch "
+        f"(bars: {json.dumps(bars)}): " + json.dumps(grad)
+        + (" ok" if ok else " FAIL"))
+    if not ok:
+        fail(f"path {tag}: the card's gradient disagrees with the CPU's")
+    return (cpu, cpu_step), (card, card_step), counts
+
+
+def path_e1(h) -> dict:
+    """Three fp32 train steps of the default stack (4 speakers x 2 crops of
+    2 s) on the card and on the CPU's plain path, each from the same state
+    (the CPU's, copied to the card before the step); first the gradient
+    of the loss at the initial state on both.
+
+    The ECAPA half (K1's consumer) is well conditioned; the raw branch's
+    train-mode BatchNorms over log-sinc features turn rounding (cuDNN's
+    sums against the CPU's) into percent-level gradient differences, in
+    its sinc parameters most: its gradient's bar is 0.95. The steps'
+    bars are those the CPU tests hold the port and the JAX package to
+    (tests/test_torch_port_train_raw3.py): AdaBelief's first update is
+    close to the sign of the gradient."""
+    import torch
+    lr = h["lr"]
+    (cpu, cpu_step), (card, card_step), counts = gradient_check(
+        h, "E1", {"backbone.ecapa": 0.999, "backbone.raw_branch": 0.95,
+                  "loss": 0.999})
     rows = []
     for i in range(3):
         wave, label = seeded_batch(10 + i, 4, 2, h)
@@ -1777,18 +1902,7 @@ def path_e1(h) -> dict:
                "worst_tensor": name}
         log(f"[E1 step {i}] " + json.dumps(row))
         rows.append(row)
-    # the forward and backward on the card against the CPU's: the
-    # gradients, branch by branch. The ECAPA half (K1's consumer) is
-    # well conditioned; the raw branch's train-mode BatchNorms over
-    # log-sinc features turn rounding (cuDNN's sums against the CPU's)
-    # into percent-level gradient differences, in its sinc parameters
-    # most. The steps' bars are those the CPU tests hold the port and the
-    # JAX package to (tests/test_torch_port_train_raw3.py): AdaBelief's
-    # first update is close to the sign of the gradient
-    bars = {"backbone.ecapa": 0.999, "backbone.raw_branch": 0.95,
-            "loss": 0.999}
-    ok = (all(v["cos"] >= bars[k] for k, v in grad.items())
-          and all(r["loss_rel"] <= 2e-3 and r["stats_rel"] <= 2e-2
+    ok = (all(r["loss_rel"] <= 2e-3 and r["stats_rel"] <= 2e-2
                   and r["update_cos"] >= 0.9
                   and abs(r["prec1_card"] - r["prec1_cpu"]) <= 100 / 8 + 1e-6
                   for r in rows)
@@ -1806,7 +1920,7 @@ def path_e1(h) -> dict:
 
 
 def time_steps(label: str, h, card: str, steps: int = 10,
-               warmup: int = 3) -> dict:
+               warmup: int = 3, tag: str = "E2") -> dict:
     """ms per train step at the full batch (32 speakers x 2 crops of 2 s)
     by CUDA events over ``steps`` steps after ``warmup``, peak memory,
     and a profile of the step."""
@@ -1837,11 +1951,11 @@ def time_steps(label: str, h, card: str, steps: int = 10,
     peak = torch.cuda.max_memory_allocated() / 2**30
     loss = float(m["loss"])
     if not (loss == loss and abs(loss) < 1e4):
-        fail(f"path E2 {label}: loss not finite ({loss})")
-    log(f"[E2 {label}] {ms:.2f} ms per step (CUDA events over {steps} "
+        fail(f"path {tag} {label}: loss not finite ({loss})")
+    log(f"[{tag} {label}] {ms:.2f} ms per step (CUDA events over {steps} "
         f"steps; host wall {wall:.2f} ms) -> {64 / ms * 1e3:.1f} crops/s, "
         f"peak memory {peak:.2f} GiB, loss {loss:.4f} ({card})")
-    profile(f"E2 {label}", None, None, fn=one, host=True)
+    profile(f"{tag} {label}", None, None, fn=one, host=True)
     return {"ms": ms, "crops_per_s": 64 / ms * 1e3, "peak_gib": peak,
             "wall_ms": wall}
 
@@ -1878,7 +1992,7 @@ def check_accum(h) -> None:
              "mean")
 
 
-def check_learning(label: str, h, steps: int = 20) -> None:
+def check_learning(label: str, h, steps: int = 20, tag: str = "E3") -> None:
     """``steps`` steps on one fixed 64-crop batch, the yaml's cosine
     schedule over them: the last 5 losses' mean falls below the first."""
     import torch
@@ -1895,11 +2009,11 @@ def check_learning(label: str, h, steps: int = 20) -> None:
     losses = [float(x) for x in losses]
     last = sum(losses[-5:]) / 5
     ok = all(x == x for x in losses) and last < losses[0]
-    log(f"[E3 {label}] {steps} steps on one batch: first loss "
+    log(f"[{tag} {label}] {steps} steps on one batch: first loss "
         f"{losses[0]:.4f}, mean of the last 5 {last:.4f}, prec1 "
         f"{float(m['prec1']):.1f} % {'ok' if ok else 'FAIL'}")
     if not ok:
-        fail(f"path E3 {label}: the loss did not fall ({losses})")
+        fail(f"path {tag} {label}: the loss did not fall ({losses})")
 
 
 def write_train_corpus(root, sr: int, n_spk: int = 64, n_utt: int = 4,
@@ -1930,7 +2044,7 @@ def write_train_corpus(root, sr: int, n_spk: int = 64, n_utt: int = 4,
     return trials, 2 * n_spk
 
 
-def path_e4(tmp, card: str, h: dict) -> dict:
+def path_e4(tmp, card: str, h: dict, tag: str = "E4") -> dict:
     """``--do_train`` through the CLI on the yaml's training keys (paths and
     number_of_epochs: 2 changed) over a synthetic manifest, then
     ``--do_infer --eval`` of the trained checkpoint, in this process so
@@ -1941,14 +2055,14 @@ def path_e4(tmp, card: str, h: dict) -> dict:
     sr = h["audio_spec"]["sample_rate"]
     t0 = time.time()
     trials, n_trials = write_train_corpus(tmp, sr)
-    log(f"[E4] 64 speakers x 4 WAVs of 3 s written in "
+    log(f"[{tag}] {n_trials // 2} speakers' WAVs written in "
         f"{time.time() - t0:.1f} s")
     cfg = {**h, "number_of_epochs": 2,
            "save_folder": str(tmp / "save"), "data_folder": str(tmp / "data"),
            "train_annotation": str(tmp / "meta" / "train.csv"),
            "evaluation_file": str(trials),
            "pretrained": {"use": False}}
-    path = tmp / "raw3_ecapa_train.yaml"
+    path = tmp / f"{h['model']['name']}_train.yaml"
     # YAML's JSON subset: read with or without PyYAML
     path.write_text(json.dumps(cfg, indent=1))
     dev_args = [] if E_DEVICE == "cuda" else ["--device", E_DEVICE]
@@ -1963,8 +2077,8 @@ def path_e4(tmp, card: str, h: dict) -> dict:
     train_counts = read_counts()
     text = out.getvalue()
     for line in text.splitlines():
-        log(f"[E4 train] {line}")
-    run = tmp / "save" / h["model"]["name"] / "ARmSoftmax"
+        log(f"[{tag} train] {line}")
+    run = tmp / "save" / h["model"]["name"] / h["criterion"]["name"]
     epochs = [float(x) for x in re.findall(r"utt/s, ([0-9.]+) s\)", text)]
     missing = [n for n in ("model/best_state.msgpack",
                            "model/last_state.msgpack", "result/scores.txt")
@@ -1972,15 +2086,17 @@ def path_e4(tmp, card: str, h: dict) -> dict:
     scores = ((run / "result" / "scores.txt").read_text().splitlines()
               if not missing else [])
     if rc != 0 or missing or len(scores) != 2 or len(epochs) != 2:
-        fail(f"path E4: --do_train rc {rc}, missing {missing}, scores "
+        fail(f"path {tag}: --do_train rc {rc}, missing {missing}, scores "
              f"{scores}, epochs {epochs}")
     steps = int(json.loads((run / "model" / "model_state_log.json")
                            .read_text())["step"])
-    log(f"[E4] --do_train: 2 epochs, {steps} steps of 64 crops, "
+    opts = h["dataloader_options"]
+    log(f"[{tag}] --do_train: 2 epochs, {steps} steps of "
+        f"{opts['batch_size'] * opts['nPerSpeaker']} crops, "
         f"{train_s:.1f} s in all, per epoch {epochs} s ({card}); "
         f"launches {train_counts}")
     if train_counts["mel_frontend"] != steps:
-        fail(f"path E4: {steps} train steps but K1 launched "
+        fail(f"path {tag}: {steps} train steps but K1 launched "
              f"{train_counts['mel_frontend']} times")
     out = io.StringIO()
     reset_counts()
@@ -1990,14 +2106,14 @@ def path_e4(tmp, card: str, h: dict) -> dict:
     torch.cuda.synchronize()
     eval_counts = read_counts()
     for line in out.getvalue().splitlines():
-        log(f"[E4 eval] {line}")
+        log(f"[{tag} eval] {line}")
     rows = (run / "result" / "evaluation_results.csv").read_text() \
         .strip().splitlines()
     if rc != 0 or "loaded weights" not in out.getvalue() or \
             len(rows) != n_trials + 1 or eval_counts["mel_frontend"] < 1:
-        fail(f"path E4: --do_infer --eval rc {rc}, {len(rows) - 1} trials "
+        fail(f"path {tag}: --do_infer --eval rc {rc}, {len(rows) - 1} trials "
              f"scored, launches {eval_counts}")
-    log(f"[E4] --do_infer --eval of best_state: {n_trials} trials, "
+    log(f"[{tag}] --do_infer --eval of best_state: {n_trials} trials, "
         f"launches {eval_counts}")
     return {"counts": {k: train_counts[k] + eval_counts[k]
                        for k in KERNELS}, "epochs_s": epochs}
@@ -2021,6 +2137,179 @@ def path_e(tmp, card: str, h: dict = RAW3_TRAIN_HPARAMS) -> dict:
     log(f"[E] launches over E1-E4: {counts}")
     return {"counts": counts, "fp32": fp32, "bf16": bf16, "accum2": acc,
             "epochs_s": e4["epochs_s"]}
+
+
+# ----------------------------------------------------------------------
+# path F: the RawNet2 family, served and trained
+# ----------------------------------------------------------------------
+# parameters of path F's stack whose gradient is zero by construction (a
+# softmax ignores a shift of all its inputs: the attention convs' biases,
+# the BatchNorm bias before the raw branch's attention conv, AngularProto's
+# logit bias): update cosines leave them out
+F_ZERO_GRAD = ("AttentiveStatisticsPooling_0.Conv1d_0.Conv_0.bias",
+               "raw_branch.Conv_2.bias", "raw_branch.BatchNorm_1.bias",
+               "AngularProto_0.b")
+# the raw branch's gradient bar: its strided-conv front has no log-sinc,
+# so unlike path E's RawNet3 it is well conditioned in training mode (the
+# CPU tests put both packages' fp32 steps within 5e-6 of float64)
+F_GRAD_BARS = {"backbone.ecapa": 0.999, "backbone.raw_branch": 0.999,
+               "loss": 0.999}
+
+
+def path_f3(card: str) -> dict:
+    """One forward of each other builder of the family at its yaml's
+    width (16 crops), card against the CPU's plain path; K1 once per
+    forward of a hybrid, never for a standalone raw model."""
+    import numpy as np
+    import torch
+    from speakerverification_tpu_torch.inference import InferenceEngine
+    counts = dict.fromkeys(KERNELS, 0)
+    for i, (yaml_name, h) in enumerate(F3_VARIANTS):
+        name = h["model"]["name"]
+        engine = InferenceEngine(h, device=E_DEVICE)
+        randomize_bn_(engine.model, seed=10 + i)
+        spec = h["audio_spec"]
+        samples = int(spec["sentence_len"] * spec["sample_rate"])
+        waves = (0.1 * np.random.default_rng(20 + i).normal(
+            0, 1, (16, samples))).astype(np.float32)
+        reset_counts()
+        engine.embed_fn(waves)
+        torch.cuda.synchronize()
+        got = read_counts()
+        compare_with_cpu(engine, waves, f"F3 {name}")
+        hybrid = hasattr(engine.model.backbone, "frontend")
+        want = {"mel_frontend": int(hybrid), "res2net_cascade": 0,
+                "quant_matmul": 0}
+        ms = cuda_ms(lambda: engine.embed_fn(waves), iters=5, warmup=1)
+        n_params = sum(p.numel() for p in engine.model.parameters())
+        log(f"[F3 {name}] {yaml_name} keys, {spec['sample_rate']} Hz, "
+            f"{samples} samples, {n_params / 1e6:.2f} M params: 16 crops "
+            f"{ms:.2f} ms per forward ({card}); launches {got} "
+            f"{'ok' if got == want else 'FAIL'}")
+        if got != want:
+            fail(f"path F3 {name}: launches {got}, expected {want}")
+        for k in KERNELS:
+            counts[k] += got[k]
+        del engine
+    return counts
+
+
+def path_f(tmp, card: str, h: dict = RAW_ECAPA_HPARAMS) -> dict:
+    """The RawNet2 family at full width (F1-F4): Raw_ECAPA_conv_asp served
+    over HTTP and timed at the serving batch (F1); its train step with
+    AAmSoftmaxAP over 17,982 classes and AdaBelief, the gradient against
+    the CPU's, timed in fp32 and bf16, learning on one batch (F2); every
+    other builder of the family against the CPU (F3); ``--do_train`` then
+    ``--do_infer --eval`` through the CLI (F4)."""
+    import numpy as np
+    h = dict(h)
+    f1 = serve_over_http("F1", h, bn_seed=5, device=E_DEVICE)
+    engine = f1["engine"]
+    waves = (0.1 * np.random.default_rng(6).normal(
+        0, 1, (f1["n_crops"], f1["samples"]))).astype(np.float32)
+    throughput("F1 Raw_ECAPA_conv_asp", engine, waves, h["num_eval"], card)
+    profile("F1", engine, waves)
+    del engine, f1["engine"]
+    _, _, grad_counts = gradient_check(h, "F2", F_GRAD_BARS, F_ZERO_GRAD)
+    reset_counts()
+    fp32 = time_steps("fp32", h, card, tag="F2")
+    bf16 = time_steps("bf16 mixedprec", {**h, "mixedprec": True}, card,
+                      tag="F2")
+    check_learning("fp32", h, tag="F2")
+    check_learning("bf16", {**h, "mixedprec": True}, tag="F2")
+    f2 = read_counts()
+    f3 = path_f3(card)
+    f4 = path_e4(tmp, card, h, tag="F4")
+    counts = {k: f1["counts"][k] + grad_counts[k] + f2[k] + f3[k]
+              + f4["counts"][k] for k in KERNELS}
+    log(f"[F] launches over F1-F4: {counts}")
+    if counts["res2net_cascade"] or counts["quant_matmul"]:
+        fail(f"path F ran the cascade or int8 kernel: {counts}")
+    return {"counts": counts, "fp32": fp32, "bf16": bf16,
+            "epochs_s": f4["epochs_s"]}
+
+
+# ----------------------------------------------------------------------
+# F2's fp32 convolution gradient: remedies side by side (--f2-conv)
+# ----------------------------------------------------------------------
+# each in a process of its own: cuDNN's algorithm cache, its workspace
+# cap (read once) and the peak memory are per process. A "cached" ("big")
+# run first leaves a 66 (76) GiB block free in PyTorch's allocator, as
+# the phases before F2 may: without a timed pick, cuDNN may take a plan
+# whose workspace fits in the free memory. All but the benchmark runs
+# turn the train step's timed pick (timed_conv_plans) off
+F2_CONV_VARIANTS = {"default": {}, "benchmark": {},
+                    "wscap": {"CUDNN_CONV_WSCAP_DBG": "1024"}, "gemm": {},
+                    "default cached": {}, "benchmark cached": {},
+                    "wscap cached": {"CUDNN_CONV_WSCAP_DBG": "1024"},
+                    "gemm cached": {}, "default big": {},
+                    "benchmark big": {}}
+F2_FREE_GIB = {"cached": 66, "big": 76}
+
+
+def _gemm_same_conv(cin: int, cout: int, bias: bool):
+    """A 3-tap 'SAME' conv computed as one product over the three shifted
+    copies of its input (im2col), so that its gradients are products."""
+    import torch
+    import torch.nn as nn
+    import torch.nn.functional as F
+
+    class GemmConv1d(nn.Conv1d):
+        def forward(self, x):
+            t = x.shape[-1]
+            xp = F.pad(x, (1, 1))
+            cols = torch.cat([xp[:, :, i:i + t] for i in range(3)], dim=1)
+            w = self.weight.permute(0, 2, 1).reshape(self.out_channels, -1)
+            out = torch.matmul(w, cols)
+            return out if self.bias is None else out + self.bias[:, None]
+    return GemmConv1d(cin, cout, 3, padding=1, bias=bias)
+
+
+def f2_conv_variant(variant: str) -> None:
+    """F2's train step (64 crops, AAmSoftmaxAP, AdaBelief) timed and
+    profiled with one remedy for its FFT convolution gradient: fp32, and
+    bf16 but for the GEMM form."""
+    import torch
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = variant.startswith("benchmark")
+    if not variant.startswith("benchmark"):
+        from speakerverification_tpu_torch.training import train_step
+        train_step.timed_conv_plans = lambda device: contextlib.nullcontext()
+    gib = F2_FREE_GIB.get(variant.split()[-1])
+    if gib:
+        block = torch.empty(gib * 2**30, dtype=torch.uint8, device="cuda")
+        del block
+    if variant.startswith("gemm"):
+        from speakerverification_tpu_torch.models import rawnet_blocks
+        rawnet_blocks._same_conv = _gemm_same_conv
+    time_steps("fp32", RAW_ECAPA_HPARAMS, card, tag=f"F2 {variant}")
+    if not variant.startswith("gemm"):
+        time_steps("bf16 mixedprec", {**RAW_ECAPA_HPARAMS, "mixedprec": True},
+                   card, tag=f"F2 {variant}")
+
+
+def f2_conv() -> None:
+    """Run :func:`f2_conv_variant` for each remedy in its own process
+    (kernels built once, here)."""
+    import os
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    build_kernels()
+    only = sys.argv[2:]
+    for variant, env in F2_CONV_VARIANTS.items():
+        if only and variant not in only:
+            continue
+        t0 = time.time()
+        out = subprocess.run([sys.executable, __file__, "--f2-conv-variant",
+                              *variant.split()], env={**os.environ, **env},
+                             capture_output=True, text=True, timeout=600)
+        log(out.stdout.rstrip())
+        if out.returncode != 0:
+            fail(f"--f2-conv {variant}: {out.stderr[-2000:]}")
+        log(f"[F2 {variant}] process took {time.time() - t0:.1f} s")
 
 
 def main() -> None:
@@ -2082,14 +2371,22 @@ def main() -> None:
         e = path_e(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    tmp = Path(tempfile.mkdtemp(prefix="svtorch_rawnet2_"))
+    try:
+        f = path_f(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     paths = {"A": a["counts"], "B": b["counts"], "C": c["counts"],
-             "D": d["counts"], "E": e["counts"]}
+             "D": d["counts"], "E": e["counts"], "F": f["counts"]}
     by_path = {k: {p: counts[k] for p, counts in paths.items()}
                for k in KERNELS}
 
-    main_shape = {"mel_frontend": "raw3_ecapa 8k",
-                  "res2net_cascade": "H128 B80 d2 float32",
-                  "quant_matmul": HOT_QUANT}
+    # each kernel's row at its main paths' shapes (K1: path A's and path
+    # F's serving and train shapes)
+    main_shapes = {"mel_frontend": ("raw3_ecapa 8k", "raw_ecapa 16k",
+                                    "raw_ecapa 16k train"),
+                   "res2net_cascade": ("H128 B80 d2 float32",),
+                   "quant_matmul": (HOT_QUANT,)}
     meta = {
         "mel_frontend": ("speakerverification_tpu_torch/csrc/mel_frontend.cu",
                          "speakerverification_tpu/ops/pallas_frontend.py:68"),
@@ -2101,7 +2398,7 @@ def main() -> None:
     }
     kernels = []
     for r in k1 + k2 + k3:
-        if r["shape"] != main_shape[r["name"]]:
+        if r["shape"] not in main_shapes[r["name"]]:
             continue
         src, repl = meta[r["name"]]
         kernels.append({
@@ -2125,4 +2422,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--f2-conv"]:
+        f2_conv()
+    elif sys.argv[1:2] == ["--f2-conv-variant"]:
+        f2_conv_variant(" ".join(sys.argv[2:]))
+    else:
+        main()

@@ -1,7 +1,7 @@
 """Build the port's objects from the YAML schema (port of ``builder.py``).
 
-Frontend config, compute dtype, the ``SpeakerEncoder`` for
-``Raw3_ECAPA`` and ``ECAPA_TDNN`` (and the other registered names) with
+Frontend config, compute dtype, the ``SpeakerEncoder`` for a registered
+model (``ECAPA_TDNN``, the ``Raw*_ECAPA*`` hybrids, the RawNet2 family) with
 its loss head (``criterion``), the optimizer (``optimizer``) and the
 learning-rate schedule (``callbacks``). ``frontend_backend`` and
 ``model.conv_backend`` take ``'auto' | 'xla' | 'pallas'``: ``'pallas'``
@@ -57,6 +57,8 @@ def build_model(name: str, **kwargs):
     from speakerverification_tpu_torch.models import (  # noqa: F401
         ecapa_tdnn,
         hybrids,
+        rawnet2,
+        rawnet2_custom,
     )
     return MODELS.get(name)(**kwargs)
 

@@ -148,10 +148,14 @@ class TrainDataLoader:
             except BaseException as e:          # raised in the consumer
                 errbox.append(e)
             finally:
-                try:
-                    q.put_nowait(sentinel)
-                except queue.Full:
-                    pass                        # the consumer has gone
+                # the end mark waits for room like any batch: a full queue
+                # means a slow consumer, not a gone one (that one sets stop)
+                while not stop.is_set():
+                    try:
+                        q.put(sentinel, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
 
         t = threading.Thread(target=producer, daemon=True)
         t.start()

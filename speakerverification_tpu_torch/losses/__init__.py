@@ -2,8 +2,11 @@
 
 Each head is called as ``head(x, label) -> (loss, prec1)`` and carries
 ``test_normalize``; heads are registered under their YAML names
-(``criterion.name``). Ported: ``Softmax``, ``AmSoftmax``,
-``AAmSoftmax`` and ``ARmSoftmax``.
+(``criterion.name``). Ported: the margin heads ``Softmax``,
+``AmSoftmax``, ``AAmSoftmax`` and ``ARmSoftmax``; the metric heads
+``AngularProto``, ``Prototypical``, ``GE2ELoss``, ``GE2ELossV2`` and
+``GE2ELoss_fusion``; their sums ``SoftmaxAngularProto``,
+``AmSoftmaxProto``, ``AAmSoftmaxProto`` and ``AAmSoftmaxAP``.
 """
 
 import inspect
@@ -15,6 +18,19 @@ from speakerverification_tpu_torch.losses.margin import (  # noqa: F401
 )
 from speakerverification_tpu_torch.losses.margin_extra import (  # noqa: F401
     ARmSoftmax,
+)
+from speakerverification_tpu_torch.losses.proto import (  # noqa: F401
+    AngularProto,
+    GE2ELoss,
+    GE2ELossFusion,
+    GE2ELossV2,
+    Prototypical,
+)
+from speakerverification_tpu_torch.losses.combined import (  # noqa: F401
+    AAmSoftmaxAP,
+    AAmSoftmaxProto,
+    AmSoftmaxProto,
+    SoftmaxAngularProto,
 )
 from speakerverification_tpu_torch.registry import LOSSES
 

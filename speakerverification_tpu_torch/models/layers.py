@@ -27,6 +27,7 @@ from speakerverification_tpu_torch.ops.res2net_cascade import (
 
 __all__ = [
     "promoted",
+    "at_least_fp32",
     "gelu_exact",
     "length_to_mask",
     "batch_norm",
@@ -57,6 +58,12 @@ def promoted(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return torch.func.functional_call(module, promoted_weights, (x.to(dt),))
 
 
+def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32 when its dtype is narrower (bf16), else as it is:
+    the dtype in which ``jnp.mean``/``jnp.var`` reduce a bf16 input."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU."""
     return F.gelu(x)
@@ -83,7 +90,7 @@ def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
     if bn.training:
         dims = [0] + list(range(2, x.dim()))
         # fp32 at least, as flax promotes its statistics
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        xf = at_least_fp32(x)
         mean = xf.mean(dims)
         var = torch.clamp(torch.square(xf).mean(dims) - torch.square(mean),
                           min=0.0)

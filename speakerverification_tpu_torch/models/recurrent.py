@@ -1,0 +1,56 @@
+"""flax's ``nn.RNN(nn.GRUCell(H))`` in PyTorch, with flax's layout.
+
+The cell's six products carry flax's names: ``ir``, ``iz``, ``in``
+(input kernels with a bias) and ``hr``, ``hz`` (recurrent kernels
+without one), ``hn`` (recurrent, with a bias), so ``GRUCell_0.hr.weight``
+is the transposed flax ``GRUCell_0/hr/kernel``. The update is flax's:
+
+    r  = σ(W_ir x + b_ir + W_hr h)
+    z  = σ(W_iz x + b_iz + W_hz h)
+    n  = tanh(W_in x + b_in + r ⊙ (W_hn h + b_hn))
+    h' = (1 − z) ⊙ n + z ⊙ h
+
+(torch's ``nn.GRU`` has a bias on every recurrent product). The carry
+starts at zero in fp32, flax's ``param_dtype``: with bf16 weights and
+input the recurrent products promote to fp32, and so does every state
+after the first, as in JAX (``models.layers.promoted``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from speakerverification_tpu_torch.models.layers import promoted
+
+__all__ = ["GRUCell"]
+
+
+class GRUCell(nn.Module):
+    """One GRU layer run over time: ``[B, L, C] -> [B, L, H]``."""
+    # initialized by weights.init_weights_ as flax's orthogonal()
+    orthogonal_params = ("hr.weight", "hz.weight", "hn.weight")
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.features = features
+        self.ir = nn.Linear(in_features, features)
+        self.iz = nn.Linear(in_features, features)
+        self.add_module("in", nn.Linear(in_features, features))
+        self.hr = nn.Linear(features, features, bias=False)
+        self.hz = nn.Linear(features, features, bias=False)
+        self.hn = nn.Linear(features, features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # the input products of every step at once, in x's dtype
+        xr, xz, xn = (promoted(getattr(self, k), x) for k in ("ir", "iz", "in"))
+        h = torch.zeros(x.shape[0], self.features, dtype=torch.float32,
+                        device=x.device)
+        outs = []
+        for t in range(x.shape[1]):
+            r = torch.sigmoid(xr[:, t] + promoted(self.hr, h))
+            z = torch.sigmoid(xz[:, t] + promoted(self.hz, h))
+            n = torch.tanh(xn[:, t] + r * promoted(self.hn, h))
+            h = (1.0 - z) * n + z * h
+            outs.append(h)
+        return torch.stack(outs, dim=1)

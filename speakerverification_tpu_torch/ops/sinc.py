@@ -1,6 +1,7 @@
 """Parameterized sinc band-pass filterbank (port of ``ops/sinc.py``).
 
 Band-passes parameterized by learnable (low, band) pairs, mel-initialized,
+with a half Hamming window on one of two grids (``window_grid``),
 built each forward in fp32 as a dense ``[C, 1, k]`` kernel, then a VALID
 strided conv in the wave's dtype. ``[B, T] -> [B, C, frames]``.
 """
@@ -40,11 +41,15 @@ class SincConv(nn.Module):
     def __init__(self, out_channels: int, kernel_size: int = 251,
                  stride: int = 1, sample_rate: int = 16000,
                  min_low_hz: float = 50.0, min_band_hz: float = 50.0,
-                 init_low_hz: float = 30.0):
+                 init_low_hz: float = 30.0, window_grid: str = "arange"):
         super().__init__()
         if kernel_size % 2 != 1:
             raise ValueError("kernel_size must be odd")
+        if window_grid not in ("arange", "linspace"):
+            raise ValueError(f"window_grid must be 'arange' or 'linspace', "
+                             f"got {window_grid!r}")
         self.kernel_size, self.stride = kernel_size, stride
+        self.window_grid = window_grid
         self.sample_rate = sample_rate
         self.min_low_hz, self.min_band_hz = min_low_hz, min_band_hz
         low, band = sinc_init_frequencies(out_channels, sample_rate,
@@ -66,8 +71,14 @@ class SincConv(nn.Module):
         half = (self.kernel_size - 1) // 2
         n_left = 2.0 * math.pi * torch.arange(-half, 0, dtype=torch.float32,
                                               device=dev) / self.sample_rate
-        # half Hamming window on the integer grid (RawNet3's sinc bank)
-        grid = torch.arange(half, dtype=torch.float32, device=dev)
+        # half Hamming window over the left lobe: the integer grid
+        # (RawNet3's sinc bank) or SincConv_fast's linspace(0, k/2 - 1,
+        # k//2), whose step is not 1 (the RawNet2 family's)
+        if self.window_grid == "linspace":
+            grid = torch.linspace(0.0, self.kernel_size / 2.0 - 1.0,
+                                  self.kernel_size // 2, device=dev)
+        else:
+            grid = torch.arange(half, dtype=torch.float32, device=dev)
         window = 0.54 - 0.46 * torch.cos(2.0 * math.pi * grid / self.kernel_size)
 
         f_low = low[:, None] * n_left[None, :]

@@ -38,8 +38,8 @@ from speakerverification_tpu_torch.ops.quant_matmul import (
 from speakerverification_tpu_torch.weights import cast_copy
 
 __all__ = ["QuantConfig", "QuantConv1d", "QuantLinear", "quantizable",
-           "quantize_model", "calibrate_act_scales", "int8_apply",
-           "make_int8_embed_fn"]
+           "check_int8_ported", "quantize_model", "calibrate_act_scales",
+           "int8_apply", "make_int8_embed_fn"]
 
 @dataclasses.dataclass(frozen=True)
 class QuantConfig:
@@ -188,6 +188,17 @@ class QuantConv1d(_QuantGemm):
         return self.gemm(cols.contiguous())
 
 
+def check_int8_ported(model: nn.Module) -> None:
+    """Raise ``NotImplementedError`` when ``model`` holds a module whose
+    class sets ``int8_ported = False``: its int8 extraction is not held
+    against the JAX package yet, so it serves no unchecked numbers."""
+    names = sorted({type(m).__name__ for m in model.modules()
+                    if not getattr(m, "int8_ported", True)})
+    if names:
+        raise NotImplementedError(
+            f"quant: int8 of {', '.join(names)} is not ported yet")
+
+
 def quantize_model(model: nn.Module, config: Optional[QuantConfig] = None,
                    act_scales: Optional[Mapping[str, float]] = None,
                    ) -> nn.Module:
@@ -199,6 +210,7 @@ def quantize_model(model: nn.Module, config: Optional[QuantConfig] = None,
     keys are swapped, each with its scale; a key that names no
     quantizable module raises ``KeyError``. Without (dynamic mode) every
     quantizable module is swapped."""
+    check_int8_ported(model)
     cfg = config or QuantConfig()
     targets = {_key(n): (n, m) for n, m in model.named_modules()
                if quantizable(m, cfg)}
@@ -227,6 +239,7 @@ def calibrate_act_scales(model: nn.Module, *args,
     that is called. ``margin`` leaves headroom for later batches that
     run hotter than the calibration batch (static int8 saturates at
     ±127·scale)."""
+    check_int8_ported(model)
     cfg = config or QuantConfig()
     scales: dict = {}
 

@@ -18,11 +18,15 @@ the frontend stays fp32 and casts its features (the model's own
 another: each starts from the step's incoming batch statistics, the
 gradients, losses and precisions are averaged over the k, and so are
 the k microbatches' new statistics; one optimizer update follows.
+
+On CUDA the step runs with ``torch.backends.cudnn.benchmark`` on
+(:func:`timed_conv_plans`), as XLA autotunes the JAX step's convolutions.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import contextlib
+from typing import Callable, Iterator, Optional
 
 import torch
 from torch.func import functional_call
@@ -33,7 +37,27 @@ from speakerverification_tpu_torch.optim import (
 )
 from speakerverification_tpu_torch.training.state import TrainState
 
-__all__ = ["make_train_step"]
+__all__ = ["make_train_step", "timed_conv_plans"]
+
+
+@contextlib.contextmanager
+def timed_conv_plans(device: torch.device) -> Iterator[None]:
+    """On a CUDA ``device``, cuDNN picks each convolution's plan by timing
+    the candidates (once per shape; PyTorch caches the pick). Untimed, its
+    heuristic may take any plan whose workspace fits the allocator's
+    free memory: in ``Raw_ECAPA_conv_asp``'s fp32 step that was an FFT
+    weight gradient of a 3-tap conv over 131 steps, 157 ms and ~66 GiB of
+    workspace, where other plans take a few ms."""
+    cudnn = torch.backends.cudnn
+    if device.type != "cuda":
+        yield
+        return
+    was = cudnn.benchmark
+    cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        cudnn.benchmark = was
 
 
 def make_train_step(model, tx, compute_dtype: Optional[torch.dtype] = None,
@@ -44,15 +68,16 @@ def make_train_step(model, tx, compute_dtype: Optional[torch.dtype] = None,
     def value_and_grads(state: TrainState, wave, label):
         names = list(state.params)
         masters = [state.params[k] for k in names]
-        if compute_dtype is None:
-            loss, prec1 = model(wave, label)
-        else:
-            cast = {k: p.to(compute_dtype) if p.is_floating_point() else p
-                    for k, p in zip(names, masters)}
-            loss, prec1 = functional_call(model, cast, (wave, label),
-                                          strict=False)
-        loss = loss.float()
-        grads = torch.autograd.grad(loss, masters, allow_unused=True)
+        with timed_conv_plans(wave.device):
+            if compute_dtype is None:
+                loss, prec1 = model(wave, label)
+            else:
+                cast = {k: p.to(compute_dtype) if p.is_floating_point()
+                        else p for k, p in zip(names, masters)}
+                loss, prec1 = functional_call(model, cast, (wave, label),
+                                              strict=False)
+            loss = loss.float()
+            grads = torch.autograd.grad(loss, masters, allow_unused=True)
         # a parameter the loss does not reach gets a zero gradient, as
         # jax.grad gives it
         grads = [torch.zeros_like(p) if g is None else g

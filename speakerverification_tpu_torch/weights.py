@@ -10,8 +10,13 @@ leaves change layout:
 * BatchNorm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` →
   ``weight``/``bias``/``running_mean``/``running_var``;
 * ``input_norm_*``, ``inorm_*``, ``low_hz``/``band_hz``, AFMS
-  ``alpha`` and the loss heads' ``W``/``weight`` (under ``loss``) keep
-  their names and layouts.
+  ``alpha`` and ``sap_v`` keep their names and layouts, and so do, only
+  under the scopes that own them, a ``SampleLayerNorm_*``'s
+  ``gamma``/``beta``, the metric heads' 0-d ``w``/``b`` and the margin
+  heads' ``W``/``weight`` (under ``loss``, or a head of it:
+  ``loss/AAmSoftmax_0/weight``);
+* a GRU cell's six Dense products (``GRUCell_0/ir``, ..., ``hn``) are
+  Linears of the same names.
 
 :func:`params_to_jax` is its inverse: a ``state_dict`` back to flax
 ``params``/``batch_stats`` numpy trees, which ``checkpoint.py`` writes
@@ -31,6 +36,7 @@ from __future__ import annotations
 from typing import Mapping, Optional
 
 import copy
+import re
 
 import numpy as np
 import torch
@@ -40,11 +46,21 @@ __all__ = ["params_from_jax", "params_to_jax", "init_weights_", "cast_copy",
            "act_scales_from_jax"]
 
 _SAME_NAME = {"alpha", "low_hz", "band_hz", "inorm_scale", "inorm_bias",
-              "input_norm_scale", "input_norm_bias", "W"}
-# the loss heads' own matrices (AmSoftmax/ARmSoftmax ``W [nOut,
+              "input_norm_scale", "input_norm_bias", "W", "sap_v"}
+# the margin heads' own matrices (AmSoftmax/ARmSoftmax ``W [nOut,
 # nClasses]``, AAmSoftmax ``weight [nClasses, nOut]``) at the encoder's
-# ``loss`` scope: stored as they are, not as a Dense kernel
-_HEAD_LEAVES = {"loss.W", "loss.weight"}
+# ``loss`` scope or one margin head below it (the summed heads'): stored
+# as they are, not as a Dense kernel (a plain Softmax's ``Dense_0`` is one)
+_HEAD_LEAF = re.compile(
+    r"^loss(\.(AmSoftmax|AAmSoftmax|ARmSoftmax)_\d+)?\.(W|weight)$")
+# common names kept as they are only under the scopes that own them: the
+# sample LayerNorm's ``gamma``/``beta`` (at the root: a LayerNorm's own
+# tree), and the metric heads' 0-d ``w``/``b`` at ``loss`` or one head
+# below it (AAmSoftmaxAP's ``AngularProto_0``, GE2ELoss_fusion's
+# ``GE2ELossV2_*``)
+_OWNED_LEAF = re.compile(
+    r"^((.*\.)?SampleLayerNorm_\d+\.)?(gamma|beta)$"
+    r"|^loss(\.(AngularProto|GE2ELossV2)_\d+)?\.(w|b)$")
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -90,7 +106,8 @@ def params_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None,
         elif name == "scale":
             state[key.format("weight")] = arr
             bn_scopes.add(scope)
-        elif name in _SAME_NAME or ".".join(path) in _HEAD_LEAVES:
+        elif (name in _SAME_NAME or _HEAD_LEAF.match(".".join(path))
+              or _OWNED_LEAF.match(".".join(path))):
             state[key.format(name)] = arr
         else:
             raise KeyError(f"flax leaf {'/'.join(path)} has no port "
@@ -109,7 +126,9 @@ def params_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None,
                 raise KeyError(f"BatchNorm {scope.replace('.', '/')} lacks "
                                f"its {k}")
         state[f"{scope}.num_batches_tracked"] = torch.tensor(0)
-    out = {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+    # (reshaped: ascontiguousarray makes a 0-d leaf 1-d)
+    out = {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)
+                               .reshape(v.shape))
            if isinstance(v, np.ndarray) else v for k, v in state.items()}
 
     if like is not None:
@@ -145,7 +164,7 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> tuple[dict, dict]:
         bn = f"{scope}.running_mean" in state
         if name == "num_batches_tracked":
             continue
-        if key in _HEAD_LEAVES:
+        if _HEAD_LEAF.match(key):
             _nest(params, key, arr.copy())
         elif bn and name in ("running_mean", "running_var"):
             _nest(stats, f"{scope}.{name[len('running_'):]}", arr.copy())
@@ -156,7 +175,7 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> tuple[dict, dict]:
                   np.ascontiguousarray(arr.transpose(2, 1, 0)))
         elif name == "weight" and arr.ndim == 2:
             _nest(params, f"{scope}.kernel", np.ascontiguousarray(arr.T))
-        elif name == "bias" or name in _SAME_NAME:
+        elif name == "bias" or name in _SAME_NAME or _OWNED_LEAF.match(key):
             _nest(params, key, arr.copy())
         else:
             raise KeyError(f"state_dict entry {key} has no flax counterpart")
@@ -179,8 +198,10 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     ``lecun_normal`` (a truncated normal of variance 1/fan_in), biases
     zero, BatchNorm scale 1 and bias 0 with running mean 0 and variance
     1, the loss heads' matrices (``xavier_normal_params``)
-    ``xavier_normal``; the sinc, AFMS and norm parameters keep their
-    constructed values, which are flax's."""
+    ``xavier_normal``, a GRU's recurrent kernels (``orthogonal_params``)
+    ``orthogonal`` and ``normal_params`` a standard normal; the sinc,
+    AFMS, norm and metric-head parameters keep their constructed values,
+    which are flax's."""
     for m in module.modules():
         if isinstance(m, (nn.Conv1d, nn.Linear)):
             fan_in = m.weight[0].numel()
@@ -196,6 +217,17 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             w = getattr(m, name)
             std = (2.0 / (w.shape[0] + w.shape[1])) ** 0.5
             w.copy_((torch.randn(w.shape, generator=generator) * std)
+                    .to(w.device, w.dtype))
+    # after the loop above, which draws the Linears these name
+    for m in module.modules():
+        for name in getattr(m, "orthogonal_params", ()):
+            w = m.get_parameter(name)
+            t = torch.empty(w.shape)
+            nn.init.orthogonal_(t, generator=generator)
+            w.copy_(t.to(w.device, w.dtype))
+        for name in getattr(m, "normal_params", ()):
+            w = m.get_parameter(name)
+            w.copy_(torch.randn(w.shape, generator=generator)
                     .to(w.device, w.dtype))
     return module
 

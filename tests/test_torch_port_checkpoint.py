@@ -337,11 +337,15 @@ def test_ema_weights_and_soups_match_jax(jstate, tmp_path):
         tckpt.average_checkpoints([], template)
 
 
-@pytest.mark.parametrize("name", ["ECAPA_TDNN", "Raw3_ECAPA"])
+@pytest.mark.parametrize("name", ["ECAPA_TDNN", "Raw3_ECAPA", "Raw_ECAPA",
+                                  "Raw_ECAPA_conv_asp", "Raw_ECAPA_sinc_gru",
+                                  "Raw_ECAPA_hype", "RawNet2_custom",
+                                  "RawNet2"])
 def test_params_to_jax_round_trips_bit_for_bit(name):
-    h = {"model": {"name": name, "feature_type": "raw" if name == "Raw3_ECAPA"
-                   else "melspectrogram", "nOut": 512 if name == "Raw3_ECAPA"
-                   else 192}, "audio_spec": {"sample_rate": 8000}}
+    raw = name != "ECAPA_TDNN"
+    h = {"model": {"name": name, "feature_type": "raw" if raw
+                   else "melspectrogram", "nOut": 512 if raw else 192},
+         "audio_spec": {"sample_rate": 8000}}
     model = encoder_from_hparams(h)
     init_weights_(model, torch.Generator().manual_seed(1))
     with torch.no_grad():
@@ -355,8 +359,10 @@ def test_params_to_jax_round_trips_bit_for_bit(name):
     assert set(back) == set(sd)
     for k in sd:
         assert torch.equal(back[k], sd[k]), k
+    # (a leaf name no port module has: ``gamma`` is one since the
+    # RawNet2 family's sample LayerNorm)
     with pytest.raises(KeyError, match="no flax counterpart"):
-        params_to_jax({"x.gamma": torch.ones(2)})
+        params_to_jax({"x.theta": torch.ones(2)})
 
 
 @pytest.mark.parametrize("mode", ["best_state", "use_ema", "soup"])

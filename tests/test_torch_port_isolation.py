@@ -41,7 +41,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                      "losses.margin_extra", "optim", "optim.custom",
                      "optim.schedulers", "training", "training.state",
                      "training.train_step", "training.checkpoint",
-                     "training.trainer", "data.manifest", "data.sampler"):
+                     "training.trainer", "data.manifest", "data.sampler",
+                     "models.recurrent", "models.rawnet2",
+                     "models.rawnet2_custom", "losses.proto",
+                     "losses.combined"):
         assert f"speakerverification_tpu_torch.{expected}" in res["modules"]
     loaded = res["loaded"]
     # the GPU host has neither msgpack, ml_dtypes nor PyYAML: the codec is

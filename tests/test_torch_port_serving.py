@@ -322,3 +322,20 @@ def test_chip_smoke_hparams_mirror_the_yaml():
                     ("raw3_ecapa.yaml", smoke.RAW3_TRAIN_HPARAMS),
                     ("ecapa_tdnn.yaml", smoke.ECAPA_TDNN_HPARAMS)):
         _subset_of(h, jconfig.read_config(ROOT / "yaml" / name), f"{name}: ")
+    _subset_of(smoke.RAW_ECAPA_HPARAMS,
+               jconfig.read_config(ROOT / "yaml" / "voxceleb_raw_ecapa.yaml"),
+               "voxceleb_raw_ecapa.yaml: ")
+    # path F3: each variant has the keys of the yaml that names it; the
+    # builders no yaml names take voxceleb_raw_ecapa.yaml's keys
+    named = {}
+    for name, h in smoke.F3_VARIANTS:
+        full = jconfig.read_config(ROOT / "yaml" / name)
+        named[h["model"]["name"]] = full["model"]["name"]
+        full["model"] = {**full["model"], "name": h["model"]["name"]}
+        _subset_of(h, full, f"{name}: ")
+    assert named == {"Raw_ECAPA": "Raw_ECAPA",
+                     "Raw_ECAPA_sinc_gru": "Raw_ECAPA_sinc_gru",
+                     "RawNet2_custom": "RawNet2_custom",
+                     "Raw_ECAPA_sinc_asp": "Raw_ECAPA_conv_asp",
+                     "Raw_ECAPA_hype": "Raw_ECAPA_conv_asp",
+                     "RawNet2": "Raw_ECAPA_conv_asp"}

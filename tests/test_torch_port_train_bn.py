@@ -124,15 +124,13 @@ def _stds(tree) -> dict:
             for k, v in flatten_dict(tree).items() if np.asarray(v).size > 1}
 
 
-def test_init_distributions_match_flax():
-    """Per-tensor std of a fresh full-width Raw3_ECAPA + ARmSoftmax
-    within 5 % of flax's (constant tensors exactly)."""
-    h = {"audio_spec": {"sample_rate": 8000, "sentence_len": 0.5},
-         "features": "raw", "model": {"name": "Raw3_ECAPA",
-                                      "feature_type": "raw", "nOut": 512},
-         "criterion": {"name": "ARmSoftmax"}, "nClasses": 1000}
+def _check_init(h: dict, same_means=()) -> None:
+    """Per-tensor std of a fresh full-width stack ``h`` within 5 % of
+    flax's (constant tensors exactly); the tensors ``same_means`` keep
+    flax's constant values."""
     jm = JB.encoder_from_hparams(h, with_loss=True, num_devices=1)
-    x = jnp.zeros((2, 2, 4000))
+    spec = h["audio_spec"]
+    x = jnp.zeros((2, 2, int(spec["sentence_len"] * spec["sample_rate"])))
     variables = jax.jit(jm.init)(jax.random.PRNGKey(3), x,
                                  jnp.zeros(2, jnp.int32))
     tm = TB.encoder_from_hparams(h, with_loss=True)
@@ -153,10 +151,33 @@ def test_init_distributions_match_flax():
              for k, v in flatten_dict(variables["params"]).items()}
     got_means = {"/".join(k): float(np.mean(v))
                  for k, v in flatten_dict(params).items()}
-    for k in ("backbone/raw_branch/inorm_scale",
-              "backbone/ecapa/input_norm_scale",
-              "backbone/raw_branch/Bottle2neckRaw_0/AFMS_0/alpha"):
-        assert got_means[k] == means[k]
+    for k in same_means:
+        assert got_means[k] == means[k], k
+
+
+def test_init_distributions_match_flax():
+    """Per-tensor std of a fresh full-width Raw3_ECAPA + ARmSoftmax
+    within 5 % of flax's (constant tensors exactly)."""
+    h = {"audio_spec": {"sample_rate": 8000, "sentence_len": 0.5},
+         "features": "raw", "model": {"name": "Raw3_ECAPA",
+                                      "feature_type": "raw", "nOut": 512},
+         "criterion": {"name": "ARmSoftmax"}, "nClasses": 1000}
+    _check_init(h, ("backbone/raw_branch/inorm_scale",
+                    "backbone/ecapa/input_norm_scale",
+                    "backbone/raw_branch/Bottle2neckRaw_0/AFMS_0/alpha"))
+
+
+def test_init_distributions_match_flax_rawnet2_family():
+    """The same for Raw_ECAPA_sinc_gru + AAmSoftmaxAP: the GRU's input
+    kernels (lecun_normal) and recurrent ones (orthogonal), the sample
+    LayerNorm's 1/0 and AngularProto's constants 10 and -5."""
+    h = {"audio_spec": {"sample_rate": 16000, "sentence_len": 0.2},
+         "features": "raw", "model": {"name": "Raw_ECAPA_sinc_gru",
+                                      "feature_type": "raw", "nOut": 512},
+         "criterion": {"name": "AAmSoftmaxAP"}, "nClasses": 1000}
+    _check_init(h, ("backbone/raw_branch/SampleLayerNorm_0/gamma",
+                    "backbone/raw_branch/SampleLayerNorm_0/beta",
+                    "loss/AngularProto_0/w", "loss/AngularProto_0/b"))
 
 
 def test_res2net_block_in_training_never_reaches_the_cascade(monkeypatch):

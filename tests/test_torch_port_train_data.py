@@ -4,6 +4,9 @@ the same files, labels and crops — byte for byte — from the same
 synthetic WAVs and seed; the options the port does not take are refused
 by name."""
 
+import threading
+import time
+
 import numpy as np
 import pytest
 
@@ -119,6 +122,29 @@ def test_train_loader_stops_its_producer_when_left_early(tmp_path):
     next(it)
     it.close()                        # the producer thread winds down
     assert len(list(loader)) == len(loader)
+
+
+def test_train_loader_ends_behind_a_slow_consumer(tmp_path):
+    """A consumer slower than the producer finds the prefetch queue full
+    when the producer finishes: the end of the epoch still arrives after
+    the last batch (it was dropped, and the consumer waited forever)."""
+    loader = t_train_loader(_hparams(tmp_path))
+    loader.prefetch = 1
+    seen = 0
+    done = threading.Event()
+
+    def consume():
+        nonlocal seen
+        for _ in loader:
+            time.sleep(0.2)
+            seen += 1
+        done.set()
+
+    t = threading.Thread(target=consume, daemon=True)
+    t.start()
+    t.join(timeout=60)
+    assert done.is_set() and not t.is_alive()
+    assert seen == len(loader) > 1
 
 
 @pytest.mark.parametrize("extra,match", [

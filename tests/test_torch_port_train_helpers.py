@@ -174,37 +174,41 @@ RAW3_ZERO_GRAD = ("AttentiveStatisticsPooling_0/Conv1d_0/Conv_0/bias",
 
 
 def raw3_steps(tmp_path, accum_steps: int = 1, mixedprec: bool = False,
-               f64_steps: int = 1, n_steps: int = 3) -> list:
-    """Teacher-forced steps of the full-width stack (4 speakers × 2 crops
-    of 4,000 samples, seeded) in both packages; the first ``f64_steps``
-    also through the float64 port. Returns one dict of measurements per
-    step."""
+               f64_steps: int = 1, n_steps: int = 3, stack: dict = RAW3,
+               zero_grad: tuple = RAW3_ZERO_GRAD,
+               samples: int = 4000) -> list:
+    """Teacher-forced steps of a full-width stack (``stack``, by default
+    the default one; 4 speakers × 2 crops of ``samples``, seeded) in both
+    packages; the first ``f64_steps`` also through the float64 port.
+    Update cosines leave out ``zero_grad``. Returns one dict of
+    measurements per step."""
     torch.set_num_threads(2)
-    h = {**RAW3, "mixedprec": True} if mixedprec else RAW3
-    data = batches(np.random.default_rng(0), n_steps, 4, 2, 4000, 13103)
+    h = {**stack, "mixedprec": True} if mixedprec else stack
+    data = batches(np.random.default_rng(0), n_steps, 4, 2, samples,
+                   h["nClasses"])
     pair = Pair(h, data[0], accum_steps=accum_steps)
     ref = Float64Port(pair, accum_steps) if f64_steps else None
     before = flat(pair.jstate.params)
     out = []
-    for i, (jm, tm, js, (tp, ts)) in enumerate(pair.steps(data, RAW3["lr"],
+    for i, (jm, tm, js, (tp, ts)) in enumerate(pair.steps(data, h["lr"],
                                                           tmp_path)):
         jp, jst = flat(js.params), flat(js.batch_stats)
         jl, tl = float(jm["loss"]), float(tm["loss"])
         row = {"loss_jax": jl, "loss_port": tl,
                "stats_port_jax": max(rel_errors(ts, jst).values()),
                "cos_port_jax": update_cosines(tp, before, jp,
-                                              RAW3_ZERO_GRAD)[0]}
+                                              zero_grad)[0]}
         if i < f64_steps:
             rl, rp, rs = ref.run(tmp_path / "jax_state.msgpack", *data[i],
-                                 RAW3["lr"])
+                                 h["lr"])
             row.update({
                 "loss_ref": rl,
                 "stats_port_ref": max(rel_errors(ts, rs).values()),
                 "stats_jax_ref": max(rel_errors(jst, rs).values()),
                 "cos_port_ref": update_cosines(tp, before, rp,
-                                               RAW3_ZERO_GRAD)[0],
+                                               zero_grad)[0],
                 "cos_jax_ref": update_cosines(jp, before, rp,
-                                              RAW3_ZERO_GRAD)[0]})
+                                              zero_grad)[0]})
         print(f"step {i}: " + ", ".join(f"{k} {v:.6g}"
                                         for k, v in row.items()))
         out.append(row)

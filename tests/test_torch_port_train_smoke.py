@@ -6,6 +6,7 @@ version, counted here as the kernel's launches), CUDA events and memory
 counters replaced by host clocks and zeros. The card-vs-CPU checks then
 compare the CPU with itself."""
 
+import functools
 import importlib.util
 import time
 from pathlib import Path
@@ -26,13 +27,18 @@ class _HostEvent:
         return (other.t - self.t) * 1e3
 
 
-def test_chip_smoke_path_e_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
-    torch.set_num_threads(2)
+def _load_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    from speakerverification_tpu_torch.ops import mel_frontend as tmf
+    return smoke
+
+
+def _patch_for_cpu(smoke, tmf, monkeypatch, n_spk: int = 64):
+    """The paths on the CPU: the mel kernel's plain version counted as
+    its launches, host clocks for CUDA events, no profiles, a corpus of
+    ``n_spk`` speakers' 0.5 s WAVs."""
     plain = tmf.mel_frontend_plain
 
     def counted(*args, **kwargs):
@@ -48,7 +54,15 @@ def test_chip_smoke_path_e_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(smoke, "profile", lambda *a, **k: None)
     writer = smoke.write_train_corpus
     monkeypatch.setattr(smoke, "write_train_corpus",
-                        lambda root, sr: writer(root, sr, seconds=0.5))
+                        lambda root, sr: writer(root, sr, n_spk=n_spk,
+                                                seconds=0.5))
+
+
+def test_chip_smoke_path_e_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
+    torch.set_num_threads(2)
+    smoke = _load_smoke()
+    from speakerverification_tpu_torch.ops import mel_frontend as tmf
+    _patch_for_cpu(smoke, tmf, monkeypatch)
     h = {**smoke.RAW3_TRAIN_HPARAMS,
          "audio_spec": {**smoke.RAW3_TRAIN_HPARAMS["audio_spec"],
                         "sentence_len": 0.25},
@@ -67,5 +81,70 @@ def test_chip_smoke_path_e_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
     # microbatches (E2; the profiles are left out here); 40 steps (E3);
     # 6 train steps and 6 eval batches (E4)
     assert out["counts"]["mel_frontend"] == 4 + (26 + 16 + 4) + 40 + 12
+    assert out["counts"]["res2net_cascade"] == 0
+    assert len(out["epochs_s"]) == 2
+
+
+def _narrow_rawnet2_family(monkeypatch):
+    """The family's builders at small widths (they pin the full ones,
+    which tests/test_torch_port_rawnet2_builders.py holds against JAX): a
+    16-channel ECAPA branch, RawNet2Custom filters (8, 8, 16, 16, 32, 32)
+    with a 16-unit GRU, RawNet2 at 8 and 16 filters."""
+    from speakerverification_tpu_torch.models import (
+        hybrids,
+        rawnet2,
+        rawnet2_custom,
+    )
+    from speakerverification_tpu_torch.models.ecapa_tdnn import ECAPA_TDNN
+
+    def ecapa(n_mels, input_norm):
+        return ECAPA_TDNN(n_mels=n_mels, lin_neurons=192,
+                          channels=(16, 16, 16, 16, 48),
+                          attention_channels=4, se_channels=4,
+                          res2net_scale=2, feature_type="melspectrogram",
+                          log_input=False, input_norm=input_norm)
+
+    custom = functools.partial(rawnet2_custom.RawNet2Custom,
+                               filters=(8, 8, 16, 16, 32, 32), gru_node=16)
+    monkeypatch.setattr(hybrids, "_hybrid_ecapa", ecapa)
+    monkeypatch.setattr(hybrids, "RawNet2Custom", custom)
+    monkeypatch.setattr(rawnet2_custom, "RawNet2Custom", custom)
+    monkeypatch.setattr(rawnet2, "RawNet2", functools.partial(
+        rawnet2.RawNet2, first_filters=8, gru_node=16,
+        block_filters=((8, 8), (8, 8), (8, 16), (16, 16), (16, 16),
+                       (16, 16))))
+
+
+def test_chip_smoke_path_f_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """Path F (the RawNet2 family) with every builder at small widths, on
+    0.35 s crops (the sinc front and seven pools of 3 need 2,437
+    samples), 2 crops per utterance, 4 speakers × 2 crops per train step
+    and a corpus of 8 speakers."""
+    torch.set_num_threads(4)
+    smoke = _load_smoke()
+    from speakerverification_tpu_torch.ops import mel_frontend as tmf
+    _patch_for_cpu(smoke, tmf, monkeypatch, n_spk=8)
+    _narrow_rawnet2_family(monkeypatch)
+    batch = smoke.seeded_batch
+    monkeypatch.setattr(smoke, "seeded_batch",
+                        lambda seed, n_spk, n_per, h:
+                        batch(seed, min(n_spk, 4), n_per, h))
+
+    def shrink(h):
+        return {**h, "num_eval": 2, "batch_size": 4,
+                "frontend_backend": "pallas",
+                "audio_spec": {**h["audio_spec"], "sentence_len": 0.35},
+                "dataloader_options": {**h.get("dataloader_options", {}),
+                                       "batch_size": 4}}
+
+    monkeypatch.setattr(smoke, "F3_VARIANTS",
+                        [(y, shrink(h)) for y, h in smoke.F3_VARIANTS])
+    out = smoke.path_f(tmp_path, "CPU", shrink(smoke.RAW_ECAPA_HPARAMS))
+    log = capsys.readouterr().out
+    assert "[F2 gradient]" in log and "FAIL" not in log
+    for name in ("Raw_ECAPA", "Raw_ECAPA_sinc_gru", "RawNet2_custom",
+                 "Raw_ECAPA_sinc_asp", "Raw_ECAPA_hype", "RawNet2"):
+        assert f"[F3 {name}]" in log
+    assert out["counts"]["mel_frontend"] > 0
     assert out["counts"]["res2net_cascade"] == 0
     assert len(out["epochs_s"]) == 2

@@ -94,3 +94,21 @@ def test_small_ecapa_bf16_steps_match_jax(tmp_path):
     assert all(p.dtype == torch.float32 for p in pair.tstate.params.values())
     assert all(s.dtype == torch.float32
                for s in pair.tstate.batch_stats.values())
+
+
+@pytest.mark.parametrize("device,inside", [("cpu", False), ("cuda", True)])
+def test_timed_conv_plans_only_on_cuda(device, inside):
+    """The step times cuDNN's convolution plans on a CUDA device only,
+    and puts the flag back afterwards, also when the step raises."""
+    from speakerverification_tpu_torch.training.train_step import (
+        timed_conv_plans,
+    )
+    cudnn = torch.backends.cudnn
+    was = cudnn.benchmark
+    with timed_conv_plans(torch.device(device)):
+        assert cudnn.benchmark is (inside or was)
+    assert cudnn.benchmark is was
+    with pytest.raises(RuntimeError, match="inside"):
+        with timed_conv_plans(torch.device(device)):
+            raise RuntimeError("inside")
+    assert cudnn.benchmark is was

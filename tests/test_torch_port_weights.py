@@ -9,13 +9,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from flax.traverse_util import flatten_dict, unflatten_dict
 
 from speakerverification_tpu.models.ecapa_tdnn import ECAPA_TDNN as JECAPA
 from speakerverification_tpu.models.hybrids import build_raw3_ecapa as j_raw3
 from speakerverification_tpu_torch.models.ecapa_tdnn import ECAPA_TDNN as TECAPA
 from speakerverification_tpu_torch.models.hybrids import build_raw3_ecapa as t_raw3
-from speakerverification_tpu_torch.weights import params_from_jax
+from speakerverification_tpu_torch.weights import params_from_jax, params_to_jax
 
 
 def _zeros_like_tree(module, x):
@@ -75,6 +76,31 @@ def test_unknown_leaf_and_half_batchnorm_raise():
     stats.pop(next(k for k in stats if k[-1] == "var"))
     with pytest.raises(KeyError, match="lacks its running_var"):
         params_from_jax(unflatten_dict(params), unflatten_dict(stats))
+
+
+@pytest.mark.parametrize("path", [("raw_branch", "b"), ("Dense_0", "w"),
+                                  ("backbone", "gamma"), ("Dense_0", "beta"),
+                                  ("loss", "Softmax_0", "w"),
+                                  ("loss", "Dense_0", "weight")])
+def test_common_names_only_under_their_owners(path):
+    """``gamma``/``beta`` pass through only under a ``SampleLayerNorm_*``
+    (or at the root of a LayerNorm's own tree), ``w``/``b`` only at
+    ``loss`` or under a metric head, ``weight`` only as a margin head's
+    matrix: elsewhere such a leaf has no place."""
+    leaf = np.zeros(3, np.float32)
+    with pytest.raises(KeyError, match="no port counterpart"):
+        params_from_jax(unflatten_dict({path: leaf}))
+
+
+def test_softmax_head_dense_is_a_kernel():
+    """A plain Softmax head's Linear goes to flax as a Dense kernel
+    ``[nOut, nClasses]``, not as a margin head's matrix."""
+    w = torch.arange(6, dtype=torch.float32).reshape(3, 2)
+    params, _ = params_to_jax({"loss.Dense_0.weight": w,
+                               "loss.Dense_0.bias": torch.zeros(3)})
+    assert set(params["loss"]["Dense_0"]) == {"kernel", "bias"}
+    np.testing.assert_array_equal(params["loss"]["Dense_0"]["kernel"],
+                                  w.numpy().T)
 
 
 def test_layouts():
