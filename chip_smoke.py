@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # every phase; needs one CUDA device
     python3 chip_smoke.py --f2-conv  # only F2's step under each remedy of
                                      # its FFT convolution gradient
+    python3 chip_smoke.py --forwards # only paths A, B and F1's forwards,
+                                     # timed (to compare two trees)
 
 Phases, each of which fails the run:
   1. build the hand-written kernels from ``speakerverification_tpu_torch/csrc``
@@ -41,7 +43,20 @@ Phases, each of which fails the run:
      step timed and profiled in fp32 and bf16, learning on one batch; F3
      every other builder of the family (Raw_ECAPA, Raw_ECAPA_sinc_gru,
      RawNet2_custom, Raw_ECAPA_sinc_asp, Raw_ECAPA_hype, RawNet2) against
-     the CPU; F4 ``--do_train`` then ``--do_infer --eval`` through the CLI.
+     the CPU; F4 ``--do_train`` then ``--do_infer --eval`` through the CLI;
+ 10. path G: training with augmentation on synthetic noise corpora in
+     MUSAN / RIRS_NOISES' layout: G1 ``raw3_ecapa.yaml``'s keys with
+     ``augment: true`` (host env_corrupt and time_domain on the loader's
+     threads): the loader's ms per batch with and without, each over a
+     full epoch on 1 and on 8 threads, the step, and the loader feeding
+     the step; G2 ``device_augment`` with
+     ``device_time_augment`` ``np`` and ``torch`` inside the Trainer's
+     step, each apply on the card against the CPU with the same drawn
+     numbers, the env types' shares over 65,536 rows drawn on the card;
+     G3 ``ecapa_tdnn.yaml``'s keys, its step fed batches that its loader
+     corrupted (env_corrupt), SpecAugment after K1 (card against CPU, a
+     timed step, learning on one batch); G4
+     ``--do_train --augment`` then ``--do_infer --eval`` through the CLI.
 Every path is compared with the same model's plain path on the CPU.
 
 The script imports nothing of the JAX package. hparams are built in code
@@ -253,6 +268,10 @@ def check_mel_kernel(dev, gen):
                   dict(RAW_ECAPA_HPARAMS), "melspectrogram"), 8 * 20, 32000),
               ("raw_ecapa 16k train", FrontendConfig.from_hparams(
                   dict(RAW_ECAPA_HPARAMS), "melspectrogram"), 32 * 2, 32000),
+              # path G3: ECAPA_TDNN's train step, 128 speakers x 2 crops
+              ("ecapa_tdnn 16k train", FrontendConfig.from_hparams(
+                  dict(ECAPA_TDNN_HPARAMS), "melspectrogram"), 128 * 2,
+               32000),
               # an odd window (its centre is n_fft/2 - 1/2): the kernel's
               # unfolded route; no configuration of the repo uses one
               ("raw3_ecapa 8k win201", FrontendConfig(win_length=201),
@@ -1660,6 +1679,7 @@ def profile(label: str, engine, waves, fn=None, top: int = 12,
     busy = sum(dev_us(e) for e in events) / 3 / 1e3
     log(f"[{label} profile] wall {wall:.2f} ms per call, device busy "
         f"{busy:.2f} ms ({100 * busy / wall:.1f} %)")
+    share = busy / wall
     for e in rows[:top]:
         if dev_us(e) <= 0:
             break
@@ -1696,6 +1716,7 @@ def profile(label: str, engine, waves, fn=None, top: int = 12,
             log(f"[{label} profile] {name}: {ms:.3f} ms/call "
                 f"({100 * ms / wall:.1f} %) over "
                 f"{sum(e.count for e in mine) // 3} launches per forward")
+    return share
 
 
 # ----------------------------------------------------------------------
@@ -1713,9 +1734,10 @@ ZERO_GRAD = ("AttentiveStatisticsPooling_0.Conv1d_0.Conv_0.bias",
              "raw_branch.inorm_scale", "raw_branch.inorm_bias")
 
 
-def train_state(h, device, seed: int = 7):
+def train_state(h, device, seed: int = 7, augment_fn=None):
     """The default stack with its head and optimizer on ``device``, its
-    weights drawn from ``seed`` as flax draws them."""
+    weights drawn from ``seed`` as flax draws them; ``augment_fn`` goes to
+    the train step."""
     from speakerverification_tpu_torch.builder import (
         encoder_from_hparams,
         optimizer_from_hparams,
@@ -1734,7 +1756,8 @@ def train_state(h, device, seed: int = 7):
     state = create_train_state(model, tx, seed)
     step = make_train_step(model, tx,
                            compute_dtype=compute_dtype_from_hparams(h),
-                           accum_steps=int(h.get("accumulate_steps", 1)))
+                           accum_steps=int(h.get("accumulate_steps", 1)),
+                           augment_fn=augment_fn)
     return state, step
 
 
@@ -1920,19 +1943,25 @@ def path_e1(h) -> dict:
 
 
 def time_steps(label: str, h, card: str, steps: int = 10,
-               warmup: int = 3, tag: str = "E2") -> dict:
-    """ms per train step at the full batch (32 speakers x 2 crops of 2 s)
-    by CUDA events over ``steps`` steps after ``warmup``, peak memory,
-    and a profile of the step."""
+               warmup: int = 3, tag: str = "E2", built=None,
+               step_args=(), batch=None) -> dict:
+    """ms per train step at the yaml's batch (``batch_size`` speakers x 2
+    crops) by CUDA events over ``steps`` steps after ``warmup``, peak
+    memory, and a profile of the step. ``built`` is a ``(state, step)``
+    to time instead of a fresh one; ``step_args`` follow the learning
+    rate (a generator and banks); ``batch`` is a loader's ``(wave,
+    label)`` to step on instead of a seeded one."""
     import torch
-    state, step = train_state(h, E_DEVICE)
-    wave, label_np = seeded_batch(20, 32, 2, h)
+    state, step = built or train_state(h, E_DEVICE)
+    n_spk = int(h["dataloader_options"]["batch_size"])
+    n_crops = 2 * n_spk
+    wave, label_np = batch or seeded_batch(20, n_spk, 2, h)
     wave = torch.from_numpy(wave).to(E_DEVICE)
     lab = torch.from_numpy(label_np).to(E_DEVICE)
     box = {"state": state}
 
     def one():
-        box["state"], m = step(box["state"], wave, lab, h["lr"])
+        box["state"], m = step(box["state"], wave, lab, h["lr"], *step_args)
         return m
     for _ in range(warmup):
         one()
@@ -1953,11 +1982,11 @@ def time_steps(label: str, h, card: str, steps: int = 10,
     if not (loss == loss and abs(loss) < 1e4):
         fail(f"path {tag} {label}: loss not finite ({loss})")
     log(f"[{tag} {label}] {ms:.2f} ms per step (CUDA events over {steps} "
-        f"steps; host wall {wall:.2f} ms) -> {64 / ms * 1e3:.1f} crops/s, "
-        f"peak memory {peak:.2f} GiB, loss {loss:.4f} ({card})")
-    profile(f"{tag} {label}", None, None, fn=one, host=True)
-    return {"ms": ms, "crops_per_s": 64 / ms * 1e3, "peak_gib": peak,
-            "wall_ms": wall}
+        f"steps; host wall {wall:.2f} ms) -> {n_crops / ms * 1e3:.1f} "
+        f"crops/s, peak memory {peak:.2f} GiB, loss {loss:.4f} ({card})")
+    busy = profile(f"{tag} {label}", None, None, fn=one, host=True)
+    return {"ms": ms, "crops_per_s": n_crops / ms * 1e3, "peak_gib": peak,
+            "wall_ms": wall, "busy": busy}
 
 
 def check_accum(h) -> None:
@@ -1992,25 +2021,31 @@ def check_accum(h) -> None:
              "mean")
 
 
-def check_learning(label: str, h, steps: int = 20, tag: str = "E3") -> None:
-    """``steps`` steps on one fixed 64-crop batch, the yaml's cosine
-    schedule over them: the last 5 losses' mean falls below the first."""
+def check_learning(label: str, h, steps: int = 20, tag: str = "E3",
+                   built=None, step_args=(), batch=None) -> None:
+    """``steps`` steps on one fixed batch of the yaml's size (a seeded
+    one, or a loader's ``(wave, label)``), the yaml's cosine schedule over
+    them: the last 5 losses' mean falls below the first 5's (means, since
+    SpecAugment draws new masks at every step and makes each loss a
+    sample)."""
     import torch
     from speakerverification_tpu_torch.builder import scheduler_from_hparams
-    state, step = train_state(h, E_DEVICE)
+    state, step = built or train_state(h, E_DEVICE)
     sched, _ = scheduler_from_hparams(h, steps)
-    wave, lab = seeded_batch(22, 32, 2, h)
+    wave, lab = batch or seeded_batch(
+        22, int(h["dataloader_options"]["batch_size"]), 2, h)
     wave = torch.from_numpy(wave).to(E_DEVICE)
     lab = torch.from_numpy(lab).to(E_DEVICE)
     losses = []
     for i in range(steps):
-        state, m = step(state, wave, lab, sched(i))
+        state, m = step(state, wave, lab, sched(i), *step_args)
         losses.append(m["loss"])
     losses = [float(x) for x in losses]
-    last = sum(losses[-5:]) / 5
-    ok = all(x == x for x in losses) and last < losses[0]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    ok = all(x == x for x in losses) and last < first
     log(f"[{tag} {label}] {steps} steps on one batch: first loss "
-        f"{losses[0]:.4f}, mean of the last 5 {last:.4f}, prec1 "
+        f"{losses[0]:.4f}, mean of the first 5 {first:.4f}, of the last 5 "
+        f"{last:.4f}, prec1 "
         f"{float(m['prec1']):.1f} % {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"path {tag} {label}: the loss did not fall ({losses})")
@@ -2044,7 +2079,8 @@ def write_train_corpus(root, sr: int, n_spk: int = 64, n_utt: int = 4,
     return trials, 2 * n_spk
 
 
-def path_e4(tmp, card: str, h: dict, tag: str = "E4") -> dict:
+def path_e4(tmp, card: str, h: dict, tag: str = "E4",
+            train_args=()) -> dict:
     """``--do_train`` through the CLI on the yaml's training keys (paths and
     number_of_epochs: 2 changed) over a synthetic manifest, then
     ``--do_infer --eval`` of the trained checkpoint, in this process so
@@ -2070,7 +2106,8 @@ def path_e4(tmp, card: str, h: dict, tag: str = "E4") -> dict:
     reset_counts()
     t0 = time.time()
     with contextlib.redirect_stdout(out):
-        rc = cli_main(["--do_train", "--config", str(path), *dev_args])
+        rc = cli_main(["--do_train", "--config", str(path), *train_args,
+                       *dev_args])
     train_s = time.time() - t0
     import torch
     torch.cuda.synchronize()
@@ -2230,6 +2267,387 @@ def path_f(tmp, card: str, h: dict = RAW_ECAPA_HPARAMS) -> dict:
 
 
 # ----------------------------------------------------------------------
+# path G: training with augmentation
+# ----------------------------------------------------------------------
+# the augment_options of yaml/raw3_ecapa.yaml and yaml/ecapa_tdnn.yaml
+# without their folders, which path G points at a synthetic corpus, and
+# ecapa_tdnn.yaml's training keys (tests/test_torch_port_augment_train.py
+# holds them against the files)
+RAW3_AUGMENT = {
+    "augment_chain": ["env_corrupt", "time_domain"],
+    "noise_sets": ["noise", "speech", "music", "noise_vad", "noise_rirs"],
+    "noise_proportion": [0.2, 0.1, 0.2, 0.25, 0.25],
+    "noise_snr": {"noise": [0, 5], "speech": [3, 20], "music": [5, 15],
+                  "noise_vad": [3, 15], "noise_rirs": [3, 15]},
+    "noise_samples": {"noise": [1, 1], "speech": [3, 7], "music": [1, 1],
+                      "noise_vad": [1, 1], "noise_rirs": [1, 1]},
+    "augment_time_domain": {"volume": 4, "speed": [0.95, 1.05],
+                            "pitch": [-0.5, 0.5],
+                            "proportion": [0.25, 0.25, 0.25],
+                            "combined": False},
+}
+ECAPA_AUGMENT = {
+    **RAW3_AUGMENT, "augment_chain": ["env_corrupt", "spec_domain"],
+    "noise_snr": {"noise": [0, 15], "speech": [13, 20], "music": [5, 15],
+                  "noise_vad": [3, 15], "noise_rirs": [3, 15]},
+}
+ECAPA_TRAIN_HPARAMS = {
+    **ECAPA_TDNN_HPARAMS,
+    "number_of_epochs": 100, "batch_size": 128, "lr": 0.001,
+    "base_lr": 1e-8, "max_lr": 0.001, "step_size": 10, "shuffle": True,
+    "random_chunk": True, "nClasses": 5994,
+    "dataloader_options": {"batch_size": 128, "shuffle": True,
+                           "num_workers": 8, "max_seg_per_spk": 500,
+                           "nPerSpeaker": 2, "split_ratio": -1},
+    "criterion": {"name": "AAmSoftmax", "margin": 0.2, "scale": 30},
+    "optimizer": {"name": "AdaBelief", "weight_decay": 0.00002,
+                  "lr_decay": 0.95},
+    "callbacks": {"name": "cosine_annealinglr_pt", "base_lr": 1e-8,
+                  "max_lr": 0.001},
+    "early_stopping": False, "es_patience": 15, "augment": False,
+}
+
+
+def write_noise_corpus(root, sr: int, n_files: int = 8,
+                       seconds: float = 5.0, rir_seconds: float = 1.0,
+                       seed: int = 40) -> dict:
+    """Noise folders in the layout ``AugmentWav`` globs, at ``sr``: MUSAN's
+    noise (coloured noise), speech (tone sweeps over noise) and music
+    (chords), split into ``seconds``-long files as the recipes split
+    MUSAN; ``noise_vad`` and RIRS_NOISES' point-source noises; simulated
+    RIRs of ``rir_seconds`` (a direct peak, then a decaying tail). Returns
+    ``augment_paths``."""
+    import numpy as np
+    from speakerverification_tpu_torch.data.audio import write_wav
+    rng = np.random.default_rng(seed)
+    n = int(seconds * sr)
+    tt = np.arange(n) / sr
+    musan = root / "musan_split"
+    for i in range(n_files):
+        white = rng.normal(0, 1, n)
+        brown = np.cumsum(white)
+        brown = brown - np.convolve(brown, np.ones(400) / 400, "same")
+        sigs = {
+            "noise": 0.3 * brown / np.abs(brown).max(),
+            "speech": 0.3 * np.sin(2 * np.pi * (150 + 100 * np.sin(
+                2 * np.pi * 0.7 * tt + i)) * tt) * (0.5 + 0.5 * np.sin(
+                    2 * np.pi * 3 * tt)) + 0.02 * white,
+            "music": sum(0.1 * np.sin(2 * np.pi * f * (i + 1) * tt)
+                         for f in (110, 138.6, 164.8)),
+        }
+        for cat, sig in sigs.items():
+            write_wav(musan / cat / f"src{i % 3}" / f"clip{i}" / f"{i}.wav",
+                      sig.astype(np.float32), sr)
+        write_wav(root / "noise_vad" / f"v{i % 2}" / f"{i}.wav",
+                  (0.2 * white).astype(np.float32), sr)
+        write_wav(root / "RIRS_NOISES" / "pointsource_noises" / f"n{i}.wav",
+                  (0.25 * rng.uniform(-1, 1, n)).astype(np.float32), sr)
+        m = int(rir_seconds * sr)
+        rir = rng.normal(0, 1, m) * np.exp(-np.arange(m) / (0.05 * (i + 1)
+                                                              * sr))
+        rir[int(rng.integers(5, 60))] = 3.0
+        write_wav(root / "RIRS_NOISES" / "simulated_rirs" / f"room{i % 2}"
+                  / f"Room{i:03d}" / "r.wav",
+                  (0.9 * rir / np.abs(rir).max()).astype(np.float32), sr)
+    return {"musan": str(musan), "noise_vad": str(root / "noise_vad"),
+            "rirs": str(root / "RIRS_NOISES")}
+
+
+def augmented(h: dict, options: dict, paths: dict, **extra) -> dict:
+    return {**h, "augment": True,
+            "augment_options": {**options, "augment_paths": paths}, **extra}
+
+
+def loader_epoch(h: dict, label: str, card: str, workers: int) -> dict:
+    """ms per batch of the training loader with ``workers`` decode
+    threads over one full epoch, the first batch (thread start) apart,
+    and the process's CPU seconds over the same wall seconds: the number
+    of cores the loader kept busy on average."""
+    from speakerverification_tpu_torch.data.loader import train_data_loader
+    opts = {**h["dataloader_options"], "num_workers": workers}
+    loader = train_data_loader({**h, "dataloader_options": opts})
+    t0 = time.time()
+    it = iter(loader)
+    next(it)
+    t1, c1 = time.time(), time.process_time()
+    n = sum(1 for _ in it)
+    wall, cpu = time.time() - t1, time.process_time() - c1
+    ms = wall / max(n, 1) * 1e3
+    log(f"[G1 loader {label}] {ms:.1f} ms per batch of "
+        f"{opts['batch_size'] * opts['nPerSpeaker']} crops over the "
+        f"epoch's {n} batches after the first ({1e3 * (t1 - t0):.1f} ms), "
+        f"{loader.num_workers} decode threads, {cpu / wall:.2f} cores busy, "
+        f"engine {'on' if loader.augmentor else 'off'} ({card})")
+    return {"ms": ms, "cores": cpu / wall, "batches": n}
+
+
+def host_breakdown(h: dict, card: str, n: int = 64) -> dict:
+    """CPU ms per crop of each stage of the loader's augmented crop, on
+    one thread over ``n`` crops: decode, time_domain, the re-crop,
+    env_corrupt."""
+    import numpy as np
+    from speakerverification_tpu_torch.data.audio import load_wav
+    from speakerverification_tpu_torch.data.augment import (
+        random_time_domain_augment,
+    )
+    from speakerverification_tpu_torch.data.loader import train_data_loader
+    loader = train_data_loader(h)
+    setting = h["augment_options"]["augment_time_domain"]
+    rng = np.random.default_rng(0)
+    ms = dict.fromkeys(("decode", "time_domain", "recrop", "env_corrupt"),
+                       0.0)
+    for i in range(n):
+        t0 = time.perf_counter()
+        audio = load_wav(loader.manifest.paths[i], loader.spec,
+                         evalmode=False, rng=rng)
+        t1 = time.perf_counter()
+        audio = random_time_domain_augment(audio, setting, rng=rng)
+        t2 = time.perf_counter()
+        audio = load_wav(audio[0], loader.spec, evalmode=False, rng=rng,
+                         normalize=False)
+        t3 = time.perf_counter()
+        loader.augmentor.env_corrupt(audio, rng)
+        t4 = time.perf_counter()
+        for k, dt in zip(ms, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            ms[k] += dt * 1e3 / n
+    log(f"[G1 host breakdown] CPU ms per crop on one thread over {n} "
+        f"crops: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f"; {64 * sum(ms.values()):.1f} ms per 64 crops ({card})")
+    return ms
+
+
+def train_from_loader(h: dict, label: str, card: str, steps: int = 8,
+                      loader=None, built=None, step_args=(),
+                      tag: str = "G1"):
+    """The train step fed by the loader, as ``Trainer.train_epoch`` feeds
+    it: wall per step over ``steps`` steps after 2, all synchronized.
+    ``loader`` and ``built`` (state, step) replace the yaml's own;
+    ``step_args`` follow the learning rate."""
+    import torch
+    from speakerverification_tpu_torch.data.loader import train_data_loader
+    state, step = built or train_state(h, E_DEVICE)
+    loader = loader or train_data_loader(h)
+    walls = []
+    epoch = 1
+    while len(walls) < steps + 2:
+        loader.set_epoch(epoch)
+        t0 = time.time()
+        for batch in loader:
+            wave = torch.from_numpy(batch["wave"]).to(E_DEVICE)
+            label_ = torch.from_numpy(batch["label"]).to(E_DEVICE)
+            state, m = step(state, wave, label_, h["lr"], *step_args)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+            t0 = time.time()
+            if len(walls) == steps + 2:
+                break
+        epoch += 1
+    wall = sum(walls[2:]) / steps * 1e3
+    log(f"[{tag} loop {label}] loader + step: {wall:.1f} ms per step over "
+        f"{steps} steps, loss {float(m['loss']):.4f} ({card})")
+    return wall
+
+
+def check_card_vs_cpu(banks, sr: int) -> dict:
+    """Each device apply with the same drawn numbers on the card and on
+    the CPU (64 crops of the yaml's length): the largest absolute
+    difference, to 1e-5 of the output's largest magnitude."""
+    import torch
+    from speakerverification_tpu_torch.ops import device_augment as da
+    from speakerverification_tpu_torch.ops import timeaugment as ta
+    cpu_banks = da.AugmentBanks(*(b.cpu() for b in banks))
+    gen = torch.Generator(E_DEVICE).manual_seed(3)
+    x = 0.1 * torch.randn(64, banks.noise.shape[1], device=E_DEVICE,
+                          generator=gen)
+
+    def to_cpu(d):
+        return type(d)(*(None if f is None else f.cpu() for f in d))
+    out = {}
+    env = da.draw_env_corrupt(gen, 64, banks)
+    pairs = {"env_corrupt": (da.apply_env_corrupt(x, env, banks),
+                             da.apply_env_corrupt(x.cpu(), to_cpu(env),
+                                                  cpu_banks))}
+    for mode in ("np", "torch"):
+        d = ta.draw_time_augment(gen, 64, x.shape[1], banks, mode, sr)
+        pairs[f"time {mode}"] = (
+            ta.apply_time_augment(x, d, banks, sr),
+            ta.apply_time_augment(x.cpu(), to_cpu(d), cpu_banks, sr))
+    for name, (got, want) in pairs.items():
+        err = float((got.cpu() - want).abs().max())
+        out[name] = err
+        if not err <= 1e-5 * float(want.abs().max()):
+            fail(f"path G2: {name} on the card differs from the CPU by {err}")
+    return out
+
+
+def env_shares(banks, n: int = 65536) -> list:
+    """The env types of ``n`` rows drawn on the card, against .2/.4/.2/.2
+    within 4 sigma."""
+    import torch
+    from speakerverification_tpu_torch.ops import device_augment as da
+    d = da.draw_env_corrupt(torch.Generator(E_DEVICE).manual_seed(4), n,
+                            banks)
+    share = (torch.bincount(d.augtype, minlength=4).double() / n).cpu()
+    p = torch.tensor([0.2, 0.4, 0.2, 0.2], dtype=torch.float64)
+    z = ((share - p).abs() / torch.sqrt(p * (1 - p) / n)).tolist()
+    if max(z) > 4:
+        fail(f"path G2: env types drawn at {share.tolist()} ({z} sigma)")
+    return share.tolist()
+
+
+def time_device_augment(label: str, h: dict, card: str) -> dict:
+    """The train step with ``device_augment`` and ``device_time_augment``
+    as the Trainer builds it (``training.trainer.device_augmentation``:
+    banks from the loader's engine, the augment hook), timed and profiled
+    at the yaml's batch."""
+    import torch
+    from speakerverification_tpu_torch.data.loader import train_data_loader
+    from speakerverification_tpu_torch.training.trainer import (
+        device_augmentation,
+    )
+    t0 = time.time()
+    loader = train_data_loader(h)
+    fn, banks, _ = device_augmentation(h, loader, E_DEVICE)
+    build_s = time.time() - t0
+    if loader.augmentor is not None or banks is None:
+        fail(f"path G2 {label}: env_corrupt did not move to the device")
+    gen = torch.Generator(E_DEVICE).manual_seed(1000)
+    built = train_state(h, E_DEVICE, augment_fn=fn)
+    reset_counts()
+    out = time_steps(label, h, card, tag="G2", built=built,
+                     step_args=(gen, banks))
+    out["loop_ms"] = train_from_loader(h, label, card, loader=loader,
+                                       built=built, step_args=(gen, banks),
+                                       tag="G2")
+    torch.cuda.synchronize()
+    out["counts"] = read_counts()
+    log(f"[G2 {label}] banks built in {build_s:.1f} s "
+        f"({banks.noise.shape[0]} noise crops, {banks.rir.shape[0]} RIRs); "
+        f"launches {out['counts']} ({card})")
+    out["banks"] = banks
+    return out
+
+
+def path_g(tmp, card: str) -> dict:
+    """Training with augmentation at full width (G1-G4)."""
+    import torch
+    t0 = time.time()
+    sr8 = RAW3_TRAIN_HPARAMS["audio_spec"]["sample_rate"]
+    noise8 = write_noise_corpus(tmp / "noise8k", sr8)
+    write_train_corpus(tmp / "g1", sr8, n_spk=128, n_utt=16)
+    sr16 = ECAPA_TDNN_HPARAMS["audio_spec"]["sample_rate"]
+    noise16 = write_noise_corpus(tmp / "noise16k", sr16)
+    write_train_corpus(tmp / "g3", sr16, n_spk=256, n_utt=3)
+    log(f"[G] synthetic noise corpora (8 and 16 kHz) and 128 x 16 (8 kHz) "
+        f"and 256 x 3 (16 kHz) speaker WAVs written in "
+        f"{time.time() - t0:.1f} s")
+    counts = dict.fromkeys(KERNELS, 0)
+
+    # G1: host env_corrupt + time_domain on the loader's threads
+    base = {**RAW3_TRAIN_HPARAMS,
+            "train_annotation": str(tmp / "g1" / "meta" / "train.csv")}
+    h1 = augmented(base, RAW3_AUGMENT, noise8)
+    nw = int(h1["dataloader_options"]["num_workers"])
+    sweep = {(aug, w): loader_epoch(hh, aug, card, w)
+             for aug, hh in (("augment off", base), ("host augment", h1))
+             for w in (1, nw)}
+    off, on = sweep["augment off", nw]["ms"], sweep["host augment", nw]["ms"]
+    for aug in ("augment off", "host augment"):
+        one, many = sweep[aug, 1], sweep[aug, nw]
+        log(f"[G1 loader threads] {aug}: {one['ms']:.1f} ms per batch on 1 "
+            f"thread ({one['cores']:.2f} cores busy), {many['ms']:.1f} ms on "
+            f"{nw} ({many['cores']:.2f} cores busy): x{one['ms'] / many['ms']:.2f} "
+            f"({card})")
+    host_breakdown(h1, card)
+    reset_counts()
+    g1 = time_steps("fp32", h1, card, tag="G1")
+    loop = train_from_loader(h1, "host augment", card)
+    c = read_counts()
+    for k in KERNELS:
+        counts[k] += c[k]
+    pace = "loader" if on > g1["ms"] else "device"
+    log(f"[G1] loader {on:.1f} ms per batch with host augmentation "
+        f"({off:.1f} without), step {g1['ms']:.2f} ms (busy "
+        f"{100 * g1['busy']:.1f} %), loader + step {loop:.1f} ms: the "
+        f"{pace} sets the pace ({card})")
+
+    # G2: env_corrupt and the time chain inside the step
+    h2 = {**h1, "device_augment": True, "device_time_augment": "np"}
+    g2 = time_device_augment("device np", h2, card)
+    g2t = time_device_augment("device torch",
+                              {**h2, "device_time_augment": "torch"}, card)
+    banks = g2["banks"]
+    errs = check_card_vs_cpu(banks, sr8)
+    shares = env_shares(banks)
+    for k in KERNELS:
+        counts[k] += g2["counts"][k] + g2t["counts"][k]
+    log(f"[G2] step: np {g2['ms']:.2f} ms (busy {100 * g2['busy']:.1f} %), "
+        f"torch {g2t['ms']:.2f} ms (busy {100 * g2t['busy']:.1f} %), host "
+        f"augment {g1['ms']:.2f} ms; loader + step: np {g2['loop_ms']:.1f} "
+        f"ms, torch {g2t['loop_ms']:.1f} ms, host augment {loop:.1f} ms; "
+        f"card vs CPU max abs {json.dumps(errs)}; "
+        f"env shares over 65,536 rows {[round(s, 5) for s in shares]} "
+        f"(.2/.4/.2/.2, within 4 sigma) ({card})")
+    del g2, g2t, banks
+
+    # G3: ECAPA_TDNN fed batches that its loader corrupted (env_corrupt on
+    # the host's decode threads), SpecAugment after K1 in the step
+    h3 = augmented({**ECAPA_TRAIN_HPARAMS, "train_annotation": str(
+        tmp / "g3" / "meta" / "train.csv")}, ECAPA_AUGMENT, noise16)
+    from speakerverification_tpu_torch.data.loader import train_data_loader
+    from speakerverification_tpu_torch.ops import specaugment as sa
+    loader3 = train_data_loader(h3)
+    t0 = time.time()
+    batches = [(b["wave"], b["label"]) for b in loader3]
+    if loader3.augmentor is None or len(batches) < 2:
+        fail(f"path G3: {len(batches)} batches, env_corrupt "
+             f"{'on' if loader3.augmentor else 'off'} in the loader")
+    log(f"[G3 loader] {len(batches)} batches of {batches[0][0].shape} with "
+        f"env_corrupt in {time.time() - t0:.1f} s ({card})")
+    state, step = train_state(h3, E_DEVICE)
+    cfg = state.model.spec_augment
+    if cfg is None:
+        fail("path G3: spec_domain did not turn SpecAugment on")
+    gen = torch.Generator(E_DEVICE).manual_seed(5)
+    feats = torch.rand(256, 201, 80, device=E_DEVICE, generator=gen)
+    d = sa.draw_spec_augment(gen, feats.shape, cfg)
+    d_cpu = sa.SpecAugmentDraw(tuple(v.cpu() for v in d.warp),
+                               type(d.time)(*(v.cpu() for v in d.time)),
+                               type(d.freq)(*(v.cpu() for v in d.freq)))
+    err = float((sa.apply_spec_augment(feats, d, cfg).cpu()
+                 - sa.apply_spec_augment(feats.cpu(), d_cpu, cfg)).abs()
+                .max())
+    if err > 1e-6:
+        fail(f"path G3: SpecAugment on the card differs from the CPU by {err}")
+    reset_counts()
+    g3 = time_steps("fp32 spec_domain", h3, card, tag="G3",
+                    built=(state, step), step_args=(gen,), batch=batches[0])
+    check_learning("fp32 spec_domain", h3, tag="G3", step_args=(gen,),
+                   batch=batches[1])
+    c = read_counts()
+    for k in KERNELS:
+        counts[k] += c[k]
+    log(f"[G3] ECAPA_TDNN {h3['dataloader_options']['batch_size'] * 2} "
+        f"crops x 32,000: SpecAugment card vs CPU max abs {err:.3e}; step "
+        f"{g3['ms']:.2f} ms (busy {100 * g3['busy']:.1f} %); launches {c} "
+        f"({card})")
+    del state, step
+
+    # G4: --do_train --augment through the CLI, then --do_infer --eval
+    g4 = path_e4(tmp / "g4", card, {**RAW3_TRAIN_HPARAMS, "augment_options":
+                                    {**RAW3_AUGMENT, "augment_paths": noise8}},
+                 tag="G4", train_args=("--augment",))
+    for k in KERNELS:
+        counts[k] += g4["counts"][k]
+    log(f"[G] launches over G1-G4: {counts}")
+    if counts["mel_frontend"] < 1 or counts["res2net_cascade"] \
+            or counts["quant_matmul"]:
+        fail(f"path G: unexpected launches {counts}")
+    return {"counts": counts, "loader_ms": {"off": off, "host": on},
+            "g1": g1, "loop_ms": loop, "epochs_s": g4["epochs_s"]}
+
+
+# ----------------------------------------------------------------------
 # F2's fp32 convolution gradient: remedies side by side (--f2-conv)
 # ----------------------------------------------------------------------
 # each in a process of its own: cuDNN's algorithm cache, its workspace
@@ -2312,6 +2730,36 @@ def f2_conv() -> None:
         log(f"[F2 {variant}] process took {time.time() - t0:.1f} s")
 
 
+def forwards() -> None:
+    """Paths A, B and F1's serving forwards alone (random weights from the
+    seed, random BN), each timed by CUDA events, so that two trees can be
+    compared in one call: a copy of this file run from each tree's root
+    imports that tree's package."""
+    import numpy as np
+    import torch
+    from speakerverification_tpu_torch.inference import InferenceEngine
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_kernels()
+    pallas_b = {**ECAPA_TDNN_HPARAMS, "model": {
+        **ECAPA_TDNN_HPARAMS["model"], "conv_backend": "pallas"}}
+    for label, h, seed in (("A Raw3_ECAPA", RAW3_ECAPA_HPARAMS, 1),
+                           ("B ECAPA_TDNN 1024", pallas_b, 3),
+                           ("F1 Raw_ECAPA_conv_asp", RAW_ECAPA_HPARAMS, 5)):
+        engine = InferenceEngine(h)
+        randomize_bn_(engine.model, seed=seed)
+        spec = h["audio_spec"]
+        waves = (0.1 * np.random.default_rng(seed).normal(0, 1, (
+            BATCH_UTTS * h["num_eval"],
+            int(spec["sentence_len"] * spec["sample_rate"])))).astype(
+                np.float32)
+        throughput(label, engine, waves, h["num_eval"], card)
+        del engine
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2376,15 +2824,23 @@ def main() -> None:
         f = path_f(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    tmp = Path(tempfile.mkdtemp(prefix="svtorch_augment_"))
+    try:
+        g = path_g(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     paths = {"A": a["counts"], "B": b["counts"], "C": c["counts"],
-             "D": d["counts"], "E": e["counts"], "F": f["counts"]}
+             "D": d["counts"], "E": e["counts"], "F": f["counts"],
+             "G": g["counts"]}
     by_path = {k: {p: counts[k] for p, counts in paths.items()}
                for k in KERNELS}
 
     # each kernel's row at its main paths' shapes (K1: path A's and path
-    # F's serving and train shapes)
+    # F's serving and train shapes, paths E's and G's train steps)
     main_shapes = {"mel_frontend": ("raw3_ecapa 8k", "raw_ecapa 16k",
-                                    "raw_ecapa 16k train"),
+                                    "raw_ecapa 16k train",
+                                    "raw3_ecapa 8k train",
+                                    "ecapa_tdnn 16k train"),
                    "res2net_cascade": ("H128 B80 d2 float32",),
                    "quant_matmul": (HOT_QUANT,)}
     meta = {
@@ -2426,5 +2882,7 @@ if __name__ == "__main__":
         f2_conv()
     elif sys.argv[1:2] == ["--f2-conv-variant"]:
         f2_conv_variant(" ".join(sys.argv[2:]))
+    elif sys.argv[1:2] == ["--forwards"]:
+        forwards()
     else:
         main()

@@ -6,7 +6,9 @@ its loss head (``criterion``), the optimizer (``optimizer``) and the
 learning-rate schedule (``callbacks``). ``frontend_backend`` and
 ``model.conv_backend`` take ``'auto' | 'xla' | 'pallas'``: ``'pallas'``
 selects the port's hand-written kernel, ``'xla'`` the plain PyTorch
-path, ``'auto'`` the kernel on CUDA.
+path, ``'auto'`` the kernel on CUDA. SpecAugment (``ops/specaugment.py``)
+joins the training forward when ``augment`` is on and ``augment_options.
+augment_chain`` has ``spec_domain``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from speakerverification_tpu_torch.encoder import SpeakerEncoder
 from speakerverification_tpu_torch.losses import build_loss
 from speakerverification_tpu_torch.ops.frontend import FrontendConfig
+from speakerverification_tpu_torch.ops.specaugment import SpecAugmentConfig
 from speakerverification_tpu_torch.registry import MODELS
 
 __all__ = ["compute_dtype_from_hparams", "frontend_from_hparams",
@@ -98,10 +101,17 @@ def encoder_from_hparams(hparams: Mapping,
     if fe_backend not in _BACKENDS:
         raise ValueError(f"frontend_backend must be one of {_BACKENDS}, "
                          f"got {fe_backend!r}")
+    spec_aug = None
+    aug_opts = hparams.get("augment_options", {}) or {}
+    if hparams.get("augment") and "spec_domain" in (
+            aug_opts.get("augment_chain", []) or []):
+        spec_aug = SpecAugmentConfig()
     if hasattr(backbone, "frontend") and hasattr(backbone, "frontend_backend"):
-        # backbones that featurize in-model take the dtype and backend
+        # backbones that featurize in-model take the dtype, the backend
+        # and SpecAugment
         backbone.compute_dtype = compute_dtype
         backbone.frontend_backend = fe_backend
+        backbone.spec_augment = spec_aug
 
     loss = None
     if with_loss:
@@ -118,7 +128,8 @@ def encoder_from_hparams(hparams: Mapping,
                           feature_type=feature_type,
                           frontend=frontend_from_hparams(hparams, feature_type),
                           frontend_backend=fe_backend,
-                          compute_dtype=compute_dtype)
+                          compute_dtype=compute_dtype,
+                          spec_augment=spec_aug)
 
 
 def optimizer_from_hparams(hparams: Mapping):

@@ -14,9 +14,9 @@ by default). ``--do_infer`` runs its verbs in the JAX order (prepare,
 eval, test, predict); with none of them it exits 2. The resolved config
 is frozen into the run's ``config/config_frozen.yaml``. ``--do_train``
 trains on one device (the manifests are generated from ``data_folder``
-when ``train_annotation`` is missing); ``--distributed``,
-``--data_parallel``, ``--model_parallel`` and ``--augment`` are not
-ported and exit 2, as does ``--do_export``.
+when ``train_annotation`` is missing; ``--augment`` turns on the yaml's
+``augment_options``); ``--distributed``, ``--data_parallel`` and
+``--model_parallel`` are not ported and exit 2, as does ``--do_export``.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ _MODE_FLAGS = {"config", "do_train", "do_infer", "do_export", "do_serve",
                "predict", "device"}
 
 
-_REFUSED_FLAGS = ("distributed", "data_parallel", "augment")
+_REFUSED_FLAGS = ("distributed", "data_parallel")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -84,7 +84,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "mean gradient")
     p.add_argument("--test_interval", type=int, default=None)
     p.add_argument("--early_stopping", action="store_true", default=None)
-    # the JAX CLI's multi-device and augmentation flags: not ported
+    p.add_argument("--augment", action="store_true", default=None,
+                   help="train with the yaml's augment_options")
+    # the JAX CLI's multi-device flags: not ported
     for flag in _REFUSED_FLAGS:
         p.add_argument(f"--{flag}", action="store_true", default=None)
     p.add_argument("--model_parallel", type=int, default=None)

@@ -5,7 +5,9 @@
   offsets are stacked ``[num_eval, T]``; ``num_eval == 0`` → the whole
   file;
 * train mode: one crop at a random offset drawn from ``rng`` (a
-  ``numpy.random.Generator``), or at 0 when ``random_chunk`` is off.
+  ``numpy.random.Generator``), or at 0 when ``random_chunk`` is off;
+* ``load_all``: the whole signal ``[1, T]``, uncropped (impulse
+  responses are read so).
 
 WAV files are read with the standard library's ``wave`` module, 16-bit
 PCM only, scaled by 1/32768 and averaged to mono; :func:`write_wav`
@@ -82,12 +84,15 @@ def write_wav(path: Union[str, Path], audio: np.ndarray,
 
 def load_wav(source: Union[str, np.ndarray], spec: Optional[Mapping] = None,
              num_eval: int = 10, *, evalmode: bool = True,
-             random_chunk: bool = True,
-             rng: Optional[np.random.Generator] = None) -> np.ndarray:
+             random_chunk: bool = True, load_all: bool = False,
+             rng: Optional[np.random.Generator] = None,
+             normalize: bool = True) -> np.ndarray:
     """Load audio and cut its crops: eval mode ``[num_eval, T]`` float32,
-    or ``[1, whole]`` for ``num_eval == 0``; train mode ``[1, T]``. A WAV
-    path must match the configured sample rate; an ndarray source is
-    peak-normalized."""
+    or ``[1, whole]`` for ``num_eval == 0`` or ``load_all``; train mode
+    ``[1, T]``. A WAV path must match the configured sample rate; an
+    ndarray source is peak-normalized unless ``normalize`` is off (the
+    training loader's re-crop after a time-domain augmentation keeps its
+    volume gain so)."""
     spec = AudioSpec(spec)
 
     if isinstance(source, str):
@@ -96,9 +101,12 @@ def load_wav(source: Union[str, np.ndarray], spec: Optional[Mapping] = None,
             raise ValueError(
                 f"{source}: sample rate {sr} != configured {spec.sample_rate}")
     elif isinstance(source, np.ndarray):
-        audio = normalize_amplitude(source)
+        audio = normalize_amplitude(source) if normalize else \
+            np.asarray(source, np.float32)
     else:
         raise TypeError(f"invalid audio source type {type(source)}")
+    if load_all:
+        return np.expand_dims(audio.astype(np.float32), 0)
 
     max_audio = spec.max_audio
     if audio.shape[0] <= max_audio:

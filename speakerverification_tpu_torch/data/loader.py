@@ -7,8 +7,13 @@ Training batches are ``{"wave": [B, nPerSpeaker, T] float32, "label":
 tuple from its own ``numpy`` generator seeded from the epoch's, and a
 background thread keeps ``prefetch`` batches ready. The draws are the
 JAX loader's, so the same manifest and seed give the same batches.
-Augmentation (``augment: true``) and packed shards
-(``dataloader_options.shards``) are not ported and are refused by name.
+
+With ``augment: true`` each crop goes through ``augment_options``'
+``augment_chain`` in the JAX loader's order, every draw from the tuple's
+generator: ``time_domain`` (``data/augment.py``), a re-crop to the crop
+length that keeps the gain, then ``env_corrupt`` (MUSAN noise and
+simulated RIRs). Packed shards (``dataloader_options.shards``) are not
+ported and are refused by name.
 """
 
 from __future__ import annotations
@@ -17,11 +22,15 @@ import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Mapping
+from typing import Iterator, Mapping, Optional
 
 import numpy as np
 
 from speakerverification_tpu_torch.data.audio import AudioSpec, load_wav
+from speakerverification_tpu_torch.data.augment import (
+    AugmentWav,
+    random_time_domain_augment,
+)
 from speakerverification_tpu_torch.data.manifest import Manifest
 from speakerverification_tpu_torch.data.sampler import SpeakerBatchSampler
 
@@ -77,9 +86,11 @@ class EvalDataLoader:
 class TrainDataLoader:
     def __init__(self, manifest: Manifest, audio_spec: Mapping,
                  batch_size: int, nPerSpeaker: int = 1,
-                 max_seg_per_spk: int = 500, random_chunk: bool = True,
-                 num_workers: int = 8, prefetch: int = 4, seed: int = 0,
-                 num_replicas: int = 1, rank: int = 0):
+                 max_seg_per_spk: int = 500, augment: bool = False,
+                 augment_options: Optional[Mapping] = None,
+                 random_chunk: bool = True, num_workers: int = 8,
+                 prefetch: int = 4, seed: int = 0, num_replicas: int = 1,
+                 rank: int = 0):
         self.manifest = manifest
         self.spec = AudioSpec(audio_spec)
         self.batch_size = batch_size
@@ -100,6 +111,18 @@ class TrainDataLoader:
                 f"utterances (nPerSpeaker={nPerSpeaker}). Reduce batch_size "
                 f"or nPerSpeaker.")
 
+        self.augment = augment
+        self.augment_options = augment_options or {}
+        self.augment_chain = list(self.augment_options.get("augment_chain",
+                                                           []) or [])
+        # the env_corrupt engine, when there are files to corrupt with; the
+        # trainer detaches it when env_corrupt runs on the device
+        self.augmentor: Optional[AugmentWav] = None
+        if augment and "env_corrupt" in self.augment_chain:
+            engine = AugmentWav(self.augment_options, audio_spec)
+            if engine.has_noise or engine.has_reverb:
+                self.augmentor = engine
+
     def set_epoch(self, epoch: int) -> None:
         self.sampler.set_epoch(epoch)
 
@@ -107,9 +130,25 @@ class TrainDataLoader:
         return len(self.sampler)
 
     def _load_tuple(self, index_tuple, rng: np.random.Generator) -> np.ndarray:
-        crops = [load_wav(self.manifest.paths[idx], self.spec, evalmode=False,
-                          random_chunk=self.random_chunk, rng=rng)[0]
-                 for idx in index_tuple]
+        time_domain = self.augment and "time_domain" in self.augment_chain
+        augmentor = self.augmentor
+        crops = []
+        for idx in index_tuple:
+            audio = load_wav(self.manifest.paths[idx], self.spec,
+                             evalmode=False, random_chunk=self.random_chunk,
+                             rng=rng)                       # [1, T]
+            if time_domain:
+                audio = random_time_domain_augment(
+                    audio, self.augment_options.get("augment_time_domain",
+                                                    {}) or {}, rng=rng)
+                # speed changes the length: re-crop to T, without the
+                # peak normalization that would undo a volume gain
+                audio = load_wav(audio[0], self.spec, evalmode=False,
+                                 random_chunk=self.random_chunk, rng=rng,
+                                 normalize=False)
+            if augmentor is not None:
+                audio = augmentor.env_corrupt(audio, rng)
+            crops.append(audio[0][:self.spec.max_audio].astype(np.float32))
         return np.stack(crops, axis=0)                      # [nPer, T]
 
     def _batches(self) -> Iterator[dict]:
@@ -179,12 +218,9 @@ class TrainDataLoader:
 def train_data_loader(hparams: Mapping, num_replicas: int = 1,
                       rank: int = 0) -> TrainDataLoader:
     """The training loader of a config (``train_annotation``,
-    ``dataloader_options``, ``audio_spec``, ``random_chunk``, ``seed``)."""
+    ``dataloader_options``, ``audio_spec``, ``augment``,
+    ``augment_options``, ``random_chunk``, ``seed``)."""
     opts = hparams.get("dataloader_options", {}) or {}
-    if hparams.get("augment"):
-        raise NotImplementedError(
-            "augment: true is not ported yet (env_corrupt, time-domain "
-            "and SpecAugment): train with augment: false")
     if opts.get("shards"):
         raise NotImplementedError(
             "dataloader_options.shards (packed shards, data/shards.py) is "
@@ -195,6 +231,8 @@ def train_data_loader(hparams: Mapping, num_replicas: int = 1,
         batch_size=int(opts.get("batch_size", hparams.get("batch_size", 32))),
         nPerSpeaker=int(opts.get("nPerSpeaker", 1)),
         max_seg_per_spk=int(opts.get("max_seg_per_spk", 500)),
+        augment=bool(hparams.get("augment", False)),
+        augment_options=hparams.get("augment_options"),
         random_chunk=bool(hparams.get("random_chunk", True)),
         num_workers=int(opts.get("num_workers", 8)),
         seed=int(hparams.get("seed", 0)),

@@ -4,7 +4,10 @@
 ``[B(, nPerSpeaker), D]``; called with labels, the embeddings are
 grouped per speaker (``[B, nPerSpeaker, D]``) and the loss head returns
 ``(loss, prec1)``. The head sits under ``loss``, as the JAX module keeps
-its parameters under ``params["loss"]``.
+its parameters under ``params["loss"]``. With ``spec_augment`` set, a
+training forward runs SpecAugment on the frontend's fp32 features before
+the cast, its numbers from the ``rng`` that ``forward`` is given; a
+hybrid backbone featurizes in-model and is handed ``rng`` for its own.
 """
 
 from __future__ import annotations
@@ -18,6 +21,10 @@ from speakerverification_tpu_torch.ops.frontend import (
     FrontendConfig,
     select_mel_frontend,
 )
+from speakerverification_tpu_torch.ops.specaugment import (
+    SpecAugmentConfig,
+    spec_augment,
+)
 
 __all__ = ["SpeakerEncoder"]
 
@@ -28,7 +35,8 @@ class SpeakerEncoder(nn.Module):
                  feature_type: str = "melspectrogram",
                  frontend: FrontendConfig = FrontendConfig(),
                  frontend_backend: str = "auto",
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 spec_augment: Optional[SpecAugmentConfig] = None):
         super().__init__()
         self.backbone = backbone
         self.loss = loss
@@ -40,29 +48,35 @@ class SpeakerEncoder(nn.Module):
         # features are cast to this dtype before the backbone; the
         # frontend always computes in fp32
         self.compute_dtype = compute_dtype
+        self.spec_augment = spec_augment
 
     def _frontend_fn(self, wave: torch.Tensor):
         return select_mel_frontend(self.frontend, self.feature_type,
                                    self.frontend_backend, wave)
 
-    def _embed(self, wave: torch.Tensor) -> torch.Tensor:
+    def _embed(self, wave: torch.Tensor, rng) -> torch.Tensor:
         if self.feature_type == "raw" and hasattr(self.backbone, "frontend"):
             # hybrids featurize in-model from the uncast fp32 wave
-            return self.backbone(wave.float())
+            return self.backbone(wave.float(), rng)
         feats = self._frontend_fn(wave)(wave.float())
+        if self.training and self.spec_augment is not None and \
+                feats.dim() == 3:
+            feats = spec_augment(feats, self.spec_augment, rng)
         if self.compute_dtype is not None:
             feats = feats.to(self.compute_dtype)
         return self.backbone(feats)
 
     def forward(self, wave: torch.Tensor,
-                label: Optional[torch.Tensor] = None):
+                label: Optional[torch.Tensor] = None, rng=None):
         """``wave``: ``[B, T]`` or ``[B, nPerSpeaker, T]`` audio. Returns
-        the embeddings, or ``(loss, prec1)`` when ``label`` is given."""
+        the embeddings, or ``(loss, prec1)`` when ``label`` is given.
+        ``rng`` (a ``torch.Generator`` on the wave's device, or a
+        ``SpecAugmentDraw``) feeds SpecAugment in training."""
         if label is not None and self.loss is None:
             raise ValueError("SpeakerEncoder built without a loss head")
         grouped = wave.dim() == 3
         n_per = wave.shape[1] if grouped else 1
-        emb = self._embed(wave.reshape(-1, wave.shape[-1]))
+        emb = self._embed(wave.reshape(-1, wave.shape[-1]), rng)
         if label is None:
             return emb.reshape(-1, n_per, emb.shape[-1]) if grouped else emb
         return self.loss(emb.reshape(-1, n_per, emb.shape[-1]), label)

@@ -6,7 +6,10 @@ branch ∥ ECAPA-192 on in-model mel features, embeddings concatenated
 (a channel-attention head over the concatenation).
 
 The hybrid's ECAPA branch consumes linear-power mel (``log_input`` off,
-instance norm on). Its Res2Net cascade runs as plain convs, as in the
+instance norm on). In training, with ``spec_augment`` set (the builder
+sets it when ``augment_chain`` has ``spec_domain``), the mel features go
+through SpecAugment before the cast, drawn from the generator that
+``forward`` is given. Its Res2Net cascade runs as plain convs, as in the
 JAX hybrid, which does not thread ``conv_backend`` into that branch.
 """
 
@@ -32,6 +35,10 @@ from speakerverification_tpu_torch.ops.frontend import (
     FrontendConfig,
     select_mel_frontend,
 )
+from speakerverification_tpu_torch.ops.specaugment import (
+    SpecAugmentConfig,
+    spec_augment,
+)
 from speakerverification_tpu_torch.registry import MODELS
 
 __all__ = ["RawECAPAHybrid", "RawECAPAHype", "hybrid_featurize",
@@ -40,11 +47,16 @@ __all__ = ["RawECAPAHybrid", "RawECAPAHype", "hybrid_featurize",
 
 def hybrid_featurize(x: torch.Tensor, kind: str, frontend: FrontendConfig,
                      compute_dtype: Optional[torch.dtype],
-                     backend: str = "auto") -> torch.Tensor:
+                     backend: str = "auto",
+                     spec_cfg: Optional[SpecAugmentConfig] = None,
+                     rng=None, train: bool = False) -> torch.Tensor:
     """In-model featurization: the frontend pinned to fp32 (the mel
-    kernel where ``backend`` selects it), features cast to the compute
-    dtype."""
+    kernel where ``backend`` selects it), SpecAugment in training when
+    ``spec_cfg`` is set (its numbers from ``rng``, a ``torch.Generator``
+    or a ``SpecAugmentDraw``), features cast to the compute dtype."""
     f = select_mel_frontend(frontend, kind, backend, x)(x.float())
+    if train and spec_cfg is not None:
+        f = spec_augment(f, spec_cfg, rng)
     return f if compute_dtype is None else f.to(compute_dtype)
 
 
@@ -57,18 +69,22 @@ class RawECAPAHybrid(nn.Module):
     def __init__(self, raw_branch: nn.Module, ecapa: nn.Module,
                  frontend: FrontendConfig = FrontendConfig(),
                  compute_dtype: Optional[torch.dtype] = None,
-                 frontend_backend: str = "auto"):
+                 frontend_backend: str = "auto",
+                 spec_augment: Optional[SpecAugmentConfig] = None):
         super().__init__()
         self.raw_branch = raw_branch
         self.ecapa = ecapa
         self.frontend = frontend
         self.compute_dtype = compute_dtype
         self.frontend_backend = frontend_backend
+        self.spec_augment = spec_augment
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``x``: raw waveform ``[B, T]`` → ``[B, 192 + raw nOut]``."""
+    def forward(self, x: torch.Tensor, rng=None) -> torch.Tensor:
+        """``x``: raw waveform ``[B, T]`` → ``[B, 192 + raw nOut]``;
+        ``rng`` feeds SpecAugment in training."""
         mel = hybrid_featurize(x, "melspectrogram", self.frontend,
-                               self.compute_dtype, self.frontend_backend)
+                               self.compute_dtype, self.frontend_backend,
+                               self.spec_augment, rng, self.training)
         out1 = self.ecapa(mel)
         out2 = self.raw_branch(hybrid_cast(x, self.compute_dtype))
         return torch.cat([out1, out2], dim=-1)
@@ -138,13 +154,15 @@ class RawECAPAHype(nn.Module):
                  raw_out: int, nOut: int = 512, att_size: int = 128,
                  frontend: FrontendConfig = FrontendConfig(),
                  compute_dtype: Optional[torch.dtype] = None,
-                 frontend_backend: str = "auto"):
+                 frontend_backend: str = "auto",
+                 spec_augment: Optional[SpecAugmentConfig] = None):
         super().__init__()
         self.raw_branch = raw_branch
         self.ecapa = ecapa
         self.frontend = frontend
         self.compute_dtype = compute_dtype
         self.frontend_backend = frontend_backend
+        self.spec_augment = spec_augment
         width = 192 + raw_out
         self.BatchNorm_0 = bn_module(width)
         self.Dense_0 = nn.Linear(width, att_size)
@@ -153,9 +171,10 @@ class RawECAPAHype(nn.Module):
         self.BatchNorm_2 = bn_module(2 * width)
         self.Dense_2 = nn.Linear(2 * width, nOut)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng=None) -> torch.Tensor:
         mel = hybrid_featurize(x, "melspectrogram", self.frontend,
-                               self.compute_dtype, self.frontend_backend)
+                               self.compute_dtype, self.frontend_backend,
+                               self.spec_augment, rng, self.training)
         out = torch.cat([self.ecapa(mel),
                          self.raw_branch(hybrid_cast(x, self.compute_dtype))],
                         dim=-1)

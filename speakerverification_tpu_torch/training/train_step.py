@@ -1,12 +1,20 @@
 """The train step (port of ``training/train_step.py::make_train_step``),
 one device.
 
-``step(state, wave, label, lr) -> (state, {"loss", "prec1"})``: the
-model's forward in training mode on ``wave [B, nPerSpeaker, T]`` and
-``label [B]``, the gradient of the loss with respect to the fp32 master
+``step(state, wave, label, lr, rng=None, *aug_args) -> (state, {"loss",
+"prec1"})``: the model's forward in training mode on ``wave [B,
+nPerSpeaker, T]`` and ``label [B]``, the gradient of the loss with respect to the fp32 master
 parameters (the wave is not one: the mel kernel needs no backward), the
 optimizer update at learning rate ``lr``, and the BatchNorm running
 statistics that the forward updated.
+
+``rng`` is a ``torch.Generator`` on the step's device, given per step.
+With ``augment_fn(wave, rng, *aug_args) -> wave`` set (on-device
+augmentation: ``ops/device_augment.py``, ``ops/timeaugment.py``), the
+whole batch is augmented first, in fp32 and without gradient, before any
+microbatch split; the noise and RIR banks ride in ``aug_args``, so the
+trainer can swap them per epoch. A model with SpecAugment draws from the
+same generator in each microbatch's forward.
 
 ``compute_dtype=torch.bfloat16`` runs the forward and backward through
 bf16 copies of the parameters (``torch.func.functional_call``), so the
@@ -61,21 +69,22 @@ def timed_conv_plans(device: torch.device) -> Iterator[None]:
 
 
 def make_train_step(model, tx, compute_dtype: Optional[torch.dtype] = None,
-                    accum_steps: int = 1) -> Callable:
+                    accum_steps: int = 1,
+                    augment_fn: Optional[Callable] = None) -> Callable:
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
-    def value_and_grads(state: TrainState, wave, label):
+    def value_and_grads(state: TrainState, wave, label, rng):
         names = list(state.params)
         masters = [state.params[k] for k in names]
         with timed_conv_plans(wave.device):
             if compute_dtype is None:
-                loss, prec1 = model(wave, label)
+                loss, prec1 = model(wave, label, rng)
             else:
                 cast = {k: p.to(compute_dtype) if p.is_floating_point()
                         else p for k, p in zip(names, masters)}
                 loss, prec1 = functional_call(model, cast, (wave, label),
-                                              strict=False)
+                                              {"rng": rng}, strict=False)
             loss = loss.float()
             grads = torch.autograd.grad(loss, masters, allow_unused=True)
         # a parameter the loss does not reach gets a zero gradient, as
@@ -85,10 +94,15 @@ def make_train_step(model, tx, compute_dtype: Optional[torch.dtype] = None,
         return loss.detach(), prec1.detach(), dict(zip(names, grads))
 
     def step(state: TrainState, wave: torch.Tensor, label: torch.Tensor,
-             lr: float):
+             lr: float, rng: Optional[torch.Generator] = None, *aug_args):
         model.train()
+        if augment_fn is not None:
+            if rng is None:
+                raise ValueError("a step with augment_fn needs a generator")
+            with torch.no_grad():
+                wave = augment_fn(wave.float(), rng, *aug_args)
         if accum_steps == 1:
-            loss, prec1, grads = value_and_grads(state, wave, label)
+            loss, prec1, grads = value_and_grads(state, wave, label, rng)
         else:
             k = accum_steps
             if wave.shape[0] % k:
@@ -105,7 +119,8 @@ def make_train_step(model, tx, compute_dtype: Optional[torch.dtype] = None,
                 with torch.no_grad():
                     torch._foreach_copy_(stats, incoming)
                 l_i, p_i, g_i = value_and_grads(
-                    state, wave[i * n:(i + 1) * n], label[i * n:(i + 1) * n])
+                    state, wave[i * n:(i + 1) * n], label[i * n:(i + 1) * n],
+                    rng)
                 grads = g_i if grads is None else {
                     key: grads[key] + g for key, g in g_i.items()}
                 torch._foreach_add_(s_acc, stats)

@@ -8,11 +8,23 @@ line per epoch, optional validation EER (``test_interval``), early
 stopping, ``settings.txt``, a checkpoint on SIGTERM/SIGINT, and
 TensorBoard scalars when ``tensorboardX`` imports.
 
+Augmentation: with ``augment: true`` the loader runs the host chain
+(``data/augment.py``). ``device_augment: true`` moves its env_corrupt
+into the train step (``ops/device_augment.py``: the loader's engine is
+detached, noise and RIR banks of ``device_augment_noise_bank`` /
+``device_augment_rir_bank`` clips live on the device and are rebuilt
+from the corpus each epoch after the first, from
+``numpy.random.default_rng(seed * 7919 + epoch)``; the first build is
+unseeded, as in the JAX trainer). ``device_time_augment`` (``true`` for
+``'np'``, or ``'np'`` / ``'torch'``) adds ``ops/timeaugment.py``'s chain
+after it. The step's generator is seeded from ``seed * 1000 + epoch``
+at each epoch's start; its state is not checkpointed (the JAX trainer
+keeps no rng state either).
+
 The model runs on CUDA unless the caller asks for the CPU. Not ported,
 and refused by name: ``distributed``/``data_parallel``,
-``model_parallel > 1``, ``device_augment``, ``device_time_augment``,
-``profile`` and ``sharded_checkpoints`` (``augment`` and packed shards
-are refused by the loader).
+``model_parallel > 1``, ``profile`` and ``sharded_checkpoints`` (packed
+shards are refused by the loader).
 """
 
 from __future__ import annotations
@@ -44,6 +56,11 @@ from speakerverification_tpu_torch.inference import (
     resolve_device,
     run_dirs,
 )
+from speakerverification_tpu_torch.ops.device_augment import (
+    build_banks,
+    device_env_corrupt,
+)
+from speakerverification_tpu_torch.ops.timeaugment import time_augment
 from speakerverification_tpu_torch.optim import EarlyStopping
 from speakerverification_tpu_torch.training.checkpoint import (
     CheckpointManager,
@@ -53,22 +70,64 @@ from speakerverification_tpu_torch.training.checkpoint import (
 from speakerverification_tpu_torch.training.state import create_train_state
 from speakerverification_tpu_torch.training.train_step import make_train_step
 
-__all__ = ["Trainer", "run_dirs"]
+__all__ = ["Trainer", "device_augmentation", "run_dirs"]
 
 # keys of the JAX trainer that this one does not take, each with what to
 # do instead
 _REFUSED = {
     "distributed": "multi-GPU training is not ported yet: train on one GPU",
     "data_parallel": "multi-GPU training is not ported yet: train on one GPU",
-    "device_augment": "on-device augmentation (ops/device_augment.py) is "
-                      "not ported yet",
-    "device_time_augment": "on-device time augmentation (ops/timeaugment.py) "
-                           "is not ported yet",
     "profile": "the training profiler trace (profile/profile_dir) is not "
                "ported",
     "sharded_checkpoints": "orbax sharded checkpoints are not ported: the "
                            "port writes msgpack checkpoints",
 }
+
+
+def _bank_sizes(hparams: Mapping) -> tuple[int, int]:
+    """Noise crops and RIRs per bank (``device_augment_noise_bank``,
+    ``device_augment_rir_bank``)."""
+    return (int(hparams.get("device_augment_noise_bank", 256)),
+            int(hparams.get("device_augment_rir_bank", 64)))
+
+
+def device_augmentation(hparams: Mapping, loader, device):
+    """``(augment_fn, banks, bank_source)`` of ``device_augment`` and
+    ``device_time_augment`` for the train step, or Nones. With
+    ``device_augment`` the loader's env_corrupt engine is detached (it
+    becomes the banks' source); the first banks are drawn unseeded, as
+    the JAX trainer draws them."""
+    banks = source = env_fn = None
+    if hparams.get("device_augment") and loader.augmentor is not None:
+        # the loader serves clean crops; env_corrupt mixes on the device
+        source = loader.augmentor
+        banks = build_banks(source, *_bank_sizes(hparams), device=device)
+        loader.augmentor = None
+        env_fn = device_env_corrupt
+        print("[INFO] env_corrupt moved on-device "
+              f"(banks: {banks.noise.shape[0]} noise crops, "
+              f"{banks.rir.shape[0]} RIRs, refreshed per epoch)")
+    tmode = hparams.get("device_time_augment")
+    if not tmode:
+        fn = (lambda w, r, b: env_fn(w, b, r)) if env_fn else None
+        return fn, banks, source
+    t_mode = tmode if isinstance(tmode, str) else "np"
+    t_sr = int(dict(hparams.get("audio_spec") or {}).get("sample_rate",
+                                                          16000))
+    if banks is None and loader.augmentor is not None:
+        # banks feed the chain's background-noise and IR members; a host
+        # env_corrupt stays on the host
+        source = loader.augmentor
+        banks = build_banks(source, *_bank_sizes(hparams), device=device)
+    print(f"[INFO] on-device TimeAugment chain enabled (mode={t_mode}"
+          + (", no banks: background-noise/IR members skipped"
+             if banks is None else "") + ")")
+
+    def augment(w, r, b=None):
+        if env_fn is not None:
+            w = env_fn(w, b, r)
+        return time_augment(w, r, b, mode=t_mode, sample_rate=t_sr)
+    return augment, banks, source
 
 
 class Trainer:
@@ -107,9 +166,14 @@ class Trainer:
                     f"batch_size {self.hparams.get('batch_size')}")
             print(f"[INFO] gradient accumulation: {self.accum_steps} "
                   "microbatches per optimizer step")
+        (self._augment_fn, self._aug_banks,
+         self._aug_source) = device_augmentation(self.hparams, self.loader,
+                                                 self.device)
         self.step_fn = make_train_step(self.model, self.tx,
                                        compute_dtype=self._compute_dtype,
-                                       accum_steps=self.accum_steps)
+                                       accum_steps=self.accum_steps,
+                                       augment_fn=self._augment_fn)
+        self.rng = torch.Generator(device=self.device)
 
         self.ckpt = CheckpointManager(
             self.dirs["model"], top_k=3,
@@ -178,6 +242,15 @@ class Trainer:
     # ------------------------------------------------------------------
     def train_epoch(self, epoch: int) -> tuple[float, float]:
         self.loader.set_epoch(epoch)
+        if self._aug_source is not None and epoch != self.init_epoch:
+            # fresh noise and RIR clips from the corpus, the same shapes
+            self._aug_banks = build_banks(
+                self._aug_source, *_bank_sizes(self.hparams),
+                rng=np.random.default_rng(
+                    int(self.hparams.get("seed", 0)) * 7919 + epoch),
+                device=self.device)
+        self.rng.manual_seed(int(self.hparams.get("seed", 0)) * 1000 + epoch)
+        aug = (self._aug_banks,) if self._aug_banks is not None else ()
         losses, accs = [], []
         t0 = time.time()
         n_utts = 0
@@ -187,7 +260,8 @@ class Trainer:
             lr = self._lr(epoch, it, (epoch - 1) * self.steps_per_epoch + it)
             wave = torch.from_numpy(batch["wave"]).to(self.device)
             label = torch.from_numpy(batch["label"]).to(self.device)
-            self.state, metrics = self.step_fn(self.state, wave, label, lr)
+            self.state, metrics = self.step_fn(self.state, wave, label, lr,
+                                               self.rng, *aug)
             losses.append(metrics["loss"])
             accs.append(metrics["prec1"])
             n_utts += batch["wave"].shape[0] * batch["wave"].shape[1]

@@ -44,7 +44,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                      "training.trainer", "data.manifest", "data.sampler",
                      "models.recurrent", "models.rawnet2",
                      "models.rawnet2_custom", "losses.proto",
-                     "losses.combined"):
+                     "losses.combined", "data.augment", "ops.phase_vocoder",
+                     "ops.specaugment", "ops.device_augment",
+                     "ops.timeaugment"):
         assert f"speakerverification_tpu_torch.{expected}" in res["modules"]
     loaded = res["loaded"]
     # the GPU host has neither msgpack, ml_dtypes nor PyYAML: the codec is

@@ -240,7 +240,6 @@ def test_sigterm_checkpoints_the_unfinished_epoch(tmp_path):
 
 @pytest.mark.parametrize("key,value", [
     ("distributed", True), ("data_parallel", True), ("model_parallel", 2),
-    ("device_augment", True), ("device_time_augment", "np"),
     ("profile", True), ("sharded_checkpoints", True)])
 def test_trainer_refuses_what_is_not_ported(tmp_path, key, value):
     with pytest.raises(NotImplementedError, match=key):
@@ -248,7 +247,8 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, key, value):
 
 
 @pytest.mark.parametrize("flags", [["--distributed"], ["--data_parallel"],
-                                   ["--augment"], ["--model_parallel", "2"]])
+                                   ["--model_parallel", "2"]],
+                         ids=["flags0", "flags1", "flags3"])
 def test_cli_refuses_what_is_not_ported(tmp_path, flags, capsys):
     cfg = tmp_path / "c.yaml"
     cfg.write_text(_yaml(tmp_path, tmp_path / "t.txt"))

@@ -148,8 +148,8 @@ def test_train_loader_ends_behind_a_slow_consumer(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    ({"augment": True}, "augment"),
-    ({"dataloader_options": {"shards": "packs/"}}, "shards")])
+    ({"dataloader_options": {"shards": "packs/"}}, "shards")],
+    ids=["extra1"])
 def test_unported_data_options_are_refused(tmp_path, extra, match):
     h = _hparams(tmp_path)
     if "dataloader_options" in extra:

@@ -51,11 +51,12 @@ def _patch_for_cpu(smoke, tmf, monkeypatch, n_spk: int = 64):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a: 0)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
-    monkeypatch.setattr(smoke, "profile", lambda *a, **k: None)
+    monkeypatch.setattr(smoke, "profile", lambda *a, **k: 0.0)
     writer = smoke.write_train_corpus
     monkeypatch.setattr(smoke, "write_train_corpus",
-                        lambda root, sr: writer(root, sr, n_spk=n_spk,
-                                                seconds=0.5))
+                        lambda root, sr, **kw: writer(
+                            root, sr, **{**kw, "n_spk": n_spk,
+                                         "seconds": 0.5}))
 
 
 def test_chip_smoke_path_e_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
@@ -145,6 +146,47 @@ def test_chip_smoke_path_f_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
     for name in ("Raw_ECAPA", "Raw_ECAPA_sinc_gru", "RawNet2_custom",
                  "Raw_ECAPA_sinc_asp", "Raw_ECAPA_hype", "RawNet2"):
         assert f"[F3 {name}]" in log
+    assert out["counts"]["mel_frontend"] > 0
+    assert out["counts"]["res2net_cascade"] == 0
+    assert len(out["epochs_s"]) == 2
+
+
+def test_chip_smoke_path_g_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """Path G (training with augmentation) with small ECAPA_TDNNs in place
+    of Raw3_ECAPA and the 1024-channel ECAPA_TDNN, 0.25 s crops, 4
+    speakers x 2 crops per step, a corpus of 8 speakers and 1 s noise
+    files."""
+    torch.set_num_threads(2)
+    smoke = _load_smoke()
+    from speakerverification_tpu_torch.ops import mel_frontend as tmf
+    _patch_for_cpu(smoke, tmf, monkeypatch, n_spk=8)
+    noise = smoke.write_noise_corpus
+    monkeypatch.setattr(smoke, "write_noise_corpus",
+                        lambda root, sr: noise(root, sr, n_files=3,
+                                               seconds=1.0, rir_seconds=0.1))
+    small = {"name": "ECAPA_TDNN", "feature_type": "melspectrogram",
+             "nOut": 16, "channels": [16, 16, 16, 16, 48],
+             "attention_channels": 4, "se_channels": 4, "res2net_scale": 2}
+
+    def shrink(h):
+        return {**h, "model": small, "features": "melspectrogram",
+                "nClasses": 300, "num_eval": 2, "frontend_backend": "pallas",
+                "audio_spec": {**h["audio_spec"], "sentence_len": 0.25},
+                "dataloader_options": {**h["dataloader_options"],
+                                       "batch_size": 4, "num_workers": 2}}
+
+    monkeypatch.setattr(smoke, "RAW3_TRAIN_HPARAMS",
+                        shrink(smoke.RAW3_TRAIN_HPARAMS))
+    monkeypatch.setattr(smoke, "ECAPA_TRAIN_HPARAMS",
+                        shrink(smoke.ECAPA_TRAIN_HPARAMS))
+    out = smoke.path_g(tmp_path, "CPU")
+    log = capsys.readouterr().out
+    for tag in ("[G1 loader augment off]", "[G1 loader host augment]",
+                "[G1 loop host augment]", "[G2 device np]",
+                "[G2 device torch]", "[G2] step", "[G3] ECAPA_TDNN",
+                "[G4] --do_train"):
+        assert tag in log, tag
+    assert "FAIL" not in log and "env_corrupt moved on-device" in log
     assert out["counts"]["mel_frontend"] > 0
     assert out["counts"]["res2net_cascade"] == 0
     assert len(out["epochs_s"]) == 2
