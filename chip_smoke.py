@@ -6,6 +6,7 @@
                                      # its FFT convolution gradient
     python3 chip_smoke.py --forwards # only paths A, B and F1's forwards,
                                      # timed (to compare two trees)
+    python3 chip_smoke.py --data-path  # only path H (the data path)
 
 Phases, each of which fails the run:
   1. build the hand-written kernels from ``speakerverification_tpu_torch/csrc``
@@ -56,7 +57,20 @@ Phases, each of which fails the run:
      G3 ``ecapa_tdnn.yaml``'s keys, its step fed batches that its loader
      corrupted (env_corrupt), SpecAugment after K1 (card against CPU, a
      timed step, learning on one batch); G4
-     ``--do_train --augment`` then ``--do_infer --eval`` through the CLI.
+     ``--do_train --augment`` then ``--do_infer --eval`` through the CLI;
+ 11. path H: the data path on path G's corpora: H0 the native WAV reader
+     built with g++ and held bit for bit to the NumPy parser on every
+     format; H1 ``cli.dataprep --generate --pack`` (8 kHz) and ``--pack``
+     (16 kHz), and ``--stats``, ``--vad``, ``--restore``,
+     ``--split_musan`` on the noise corpus, each count checked; H2 the
+     readers' CPU ms per crop (native, NumPy, a shard crop; the file
+     read, the decode and the crop on their own) and the loader over an epoch on 1 and 8 threads from
+     WAVs and from shards, with and without host augmentation, shard
+     batches equal to WAV batches; H3 the G1 step alone and fed by each
+     loader (and by shards with ``device_augment``); H4 ``--do_train``
+     from ``dataloader_options.shards``, then ``--do_infer --eval``; H5
+     ECAPA_TDNN-1024's step with and without ``model.remat``: ms, peak
+     memory, gradients.
 Every path is compared with the same model's plain path on the CPU.
 
 The script imports nothing of the JAX package. hparams are built in code
@@ -72,6 +86,8 @@ import json
 import subprocess
 import sys
 import time
+
+T_START = time.time()
 
 # H100 SXM published peaks (dense): fp32 outside the tensor cores, TF32
 # and bf16 tensor cores, int8, HBM3 bandwidth
@@ -2080,11 +2096,12 @@ def write_train_corpus(root, sr: int, n_spk: int = 64, n_utt: int = 4,
 
 
 def path_e4(tmp, card: str, h: dict, tag: str = "E4",
-            train_args=()) -> dict:
+            train_args=(), prepare=None) -> dict:
     """``--do_train`` through the CLI on the yaml's training keys (paths and
     number_of_epochs: 2 changed) over a synthetic manifest, then
     ``--do_infer --eval`` of the trained checkpoint, in this process so
-    that the kernels' launches are counted."""
+    that the kernels' launches are counted. ``prepare(config_path)`` runs
+    between writing the config and training."""
     import io
     import re
     from speakerverification_tpu_torch.cli.main import main as cli_main
@@ -2101,6 +2118,8 @@ def path_e4(tmp, card: str, h: dict, tag: str = "E4",
     path = tmp / f"{h['model']['name']}_train.yaml"
     # YAML's JSON subset: read with or without PyYAML
     path.write_text(json.dumps(cfg, indent=1))
+    if prepare is not None:
+        prepare(path)
     dev_args = [] if E_DEVICE == "cuda" else ["--device", E_DEVICE]
     out = io.StringIO()
     reset_counts()
@@ -2153,7 +2172,7 @@ def path_e4(tmp, card: str, h: dict, tag: str = "E4",
     log(f"[{tag}] --do_infer --eval of best_state: {n_trials} trials, "
         f"launches {eval_counts}")
     return {"counts": {k: train_counts[k] + eval_counts[k]
-                       for k in KERNELS}, "epochs_s": epochs}
+                       for k in KERNELS}, "epochs_s": epochs, "steps": steps}
 
 
 def path_e(tmp, card: str, h: dict = RAW3_TRAIN_HPARAMS) -> dict:
@@ -2349,8 +2368,35 @@ def write_noise_corpus(root, sr: int, n_files: int = 8,
         write_wav(root / "RIRS_NOISES" / "simulated_rirs" / f"room{i % 2}"
                   / f"Room{i:03d}" / "r.wav",
                   (0.9 * rir / np.abs(rir).max()).astype(np.float32), sr)
-    return {"musan": str(musan), "noise_vad": str(root / "noise_vad"),
+    return noise_paths(root)
+
+
+def noise_paths(root) -> dict:
+    """``augment_paths`` of a corpus that :func:`write_noise_corpus` wrote
+    under ``root``."""
+    return {"musan": str(root / "musan_split"),
+            "noise_vad": str(root / "noise_vad"),
             "rirs": str(root / "RIRS_NOISES")}
+
+
+def g_corpora(tmp) -> dict:
+    """Path G's synthetic corpora under ``tmp``, written unless they are
+    there: noise at 8 and 16 kHz (``noise8k``, ``noise16k``), 128 x 16
+    speakers' 3 s WAVs at 8 kHz with their manifest (``g1``), 256 x 3 at
+    16 kHz (``g3``). Returns the noise corpora's ``augment_paths``."""
+    sr8 = RAW3_TRAIN_HPARAMS["audio_spec"]["sample_rate"]
+    sr16 = ECAPA_TDNN_HPARAMS["audio_spec"]["sample_rate"]
+    if not (tmp / "g3" / "meta" / "train.csv").exists():
+        t0 = time.time()
+        write_noise_corpus(tmp / "noise8k", sr8)
+        write_train_corpus(tmp / "g1", sr8, n_spk=128, n_utt=16)
+        write_noise_corpus(tmp / "noise16k", sr16)
+        write_train_corpus(tmp / "g3", sr16, n_spk=256, n_utt=3)
+        log(f"[G] synthetic noise corpora (8 and 16 kHz) and 128 x 16 (8 "
+            f"kHz) and 256 x 3 (16 kHz) speaker WAVs written in "
+            f"{time.time() - t0:.1f} s")
+    return {"noise8": noise_paths(tmp / "noise8k"),
+            "noise16": noise_paths(tmp / "noise16k")}
 
 
 def augmented(h: dict, options: dict, paths: dict, **extra) -> dict:
@@ -2358,7 +2404,8 @@ def augmented(h: dict, options: dict, paths: dict, **extra) -> dict:
             "augment_options": {**options, "augment_paths": paths}, **extra}
 
 
-def loader_epoch(h: dict, label: str, card: str, workers: int) -> dict:
+def loader_epoch(h: dict, label: str, card: str, workers: int,
+                 tag: str = "G1") -> dict:
     """ms per batch of the training loader with ``workers`` decode
     threads over one full epoch, the first batch (thread start) apart,
     and the process's CPU seconds over the same wall seconds: the number
@@ -2373,7 +2420,7 @@ def loader_epoch(h: dict, label: str, card: str, workers: int) -> dict:
     n = sum(1 for _ in it)
     wall, cpu = time.time() - t1, time.process_time() - c1
     ms = wall / max(n, 1) * 1e3
-    log(f"[G1 loader {label}] {ms:.1f} ms per batch of "
+    log(f"[{tag} loader {label}] {ms:.1f} ms per batch of "
         f"{opts['batch_size'] * opts['nPerSpeaker']} crops over the "
         f"epoch's {n} batches after the first ({1e3 * (t1 - t0):.1f} ms), "
         f"{loader.num_workers} decode threads, {cpu / wall:.2f} cores busy, "
@@ -2531,16 +2578,9 @@ def time_device_augment(label: str, h: dict, card: str) -> dict:
 def path_g(tmp, card: str) -> dict:
     """Training with augmentation at full width (G1-G4)."""
     import torch
-    t0 = time.time()
+    corpora = g_corpora(tmp)
+    noise8, noise16 = corpora["noise8"], corpora["noise16"]
     sr8 = RAW3_TRAIN_HPARAMS["audio_spec"]["sample_rate"]
-    noise8 = write_noise_corpus(tmp / "noise8k", sr8)
-    write_train_corpus(tmp / "g1", sr8, n_spk=128, n_utt=16)
-    sr16 = ECAPA_TDNN_HPARAMS["audio_spec"]["sample_rate"]
-    noise16 = write_noise_corpus(tmp / "noise16k", sr16)
-    write_train_corpus(tmp / "g3", sr16, n_spk=256, n_utt=3)
-    log(f"[G] synthetic noise corpora (8 and 16 kHz) and 128 x 16 (8 kHz) "
-        f"and 256 x 3 (16 kHz) speaker WAVs written in "
-        f"{time.time() - t0:.1f} s")
     counts = dict.fromkeys(KERNELS, 0)
 
     # G1: host env_corrupt + time_domain on the loader's threads
@@ -2645,6 +2685,473 @@ def path_g(tmp, card: str) -> dict:
         fail(f"path G: unexpected launches {counts}")
     return {"counts": counts, "loader_ms": {"off": off, "host": on},
             "g1": g1, "loop_ms": loop, "epochs_s": g4["epochs_s"]}
+
+
+# ----------------------------------------------------------------------
+# path H: the data path (native reader, packed shards, cli.dataprep)
+# ----------------------------------------------------------------------
+# (name, audio_format, bits) of every format the readers take
+WAV_FORMATS = (("pcm16", 1, 16), ("pcm24", 1, 24), ("pcm32", 1, 32),
+               ("float32", 3, 32), ("float64", 3, 64))
+
+
+def write_wav_format(path, fmt: str, channels: int, frames: int,
+                     sr: int, seed: int) -> None:
+    """A WAV of ``fmt`` with random samples over the format's range and a
+    ``LIST`` chunk before ``fmt `` and after ``data``."""
+    import struct
+
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = frames * channels
+    audio_format, bits = {f: (a, b) for f, a, b in WAV_FORMATS}[fmt]
+    if fmt == "pcm16":
+        payload = rng.integers(-2**15, 2**15, n).astype("<i2").tobytes()
+    elif fmt == "pcm24":
+        v = rng.integers(-2**23, 2**23, n).astype("<i4")
+        payload = np.ascontiguousarray(
+            v.view(np.uint8).reshape(-1, 4)[:, :3]).tobytes()
+    elif fmt == "pcm32":
+        payload = rng.integers(-2**31, 2**31, n).astype("<i4").tobytes()
+    else:
+        payload = rng.uniform(-1.2, 1.2, n).astype(
+            "<f4" if bits == 32 else "<f8").tobytes()
+
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        return (tag + struct.pack("<I", len(body)) + body
+                + b"\0" * (len(body) & 1))
+    block = channels * bits // 8
+    info = chunk(b"LIST", b"INFOISFT" + struct.pack("<I", 6) + b"smoke\0")
+    body = (b"WAVE" + info
+            + chunk(b"fmt ", struct.pack("<HHIIHH", audio_format, channels,
+                                         sr, sr * block, block, bits))
+            + chunk(b"data", payload) + info)
+    path.write_bytes(b"RIFF" + struct.pack("<I", len(body)) + body)
+
+
+def path_h0(tmp, card: str) -> None:
+    """The native reader builds, and decodes every format bit for bit as
+    the NumPy parser does."""
+    import numpy as np
+    from speakerverification_tpu_torch.data import wavio
+    t0 = time.time()
+    if not wavio.native_available():
+        fail(f"path H0: the native WAV reader did not build: "
+             f"{wavio.native_error()}")
+    build_s = time.time() - t0
+    n = 0
+    for i, (fmt, _, _) in enumerate(WAV_FORMATS):
+        for ch in (1, 2):
+            p = tmp / f"{fmt}_{ch}.wav"
+            write_wav_format(p, fmt, ch, 16001, 16000, seed=10 * i + ch)
+            got, sr = wavio.read_wav_native(p)
+            want, sr_py = wavio._read_wav_python(p)
+            if not (sr == sr_py == 16000 and got.shape == want.shape
+                    == (16001,) and np.array_equal(got.view(np.uint32),
+                                                   want.view(np.uint32))):
+                fail(f"path H0: native and NumPy decoding of {fmt} x {ch} "
+                     f"differ")
+            n += 1
+    log(f"[H0 reader] native library built and loaded in {build_s:.2f} s; "
+        f"native == NumPy parser bit for bit on {n} files (PCM 16/24/32, "
+        f"float32/64; mono and stereo; LIST chunks; odd length)")
+
+
+def dataprep_cli(*args) -> tuple:
+    """``cli.dataprep.main(args)`` in this process: its standard output
+    and wall seconds."""
+    import io
+    from speakerverification_tpu_torch.cli.dataprep import main as dataprep
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        rc = dataprep([str(a) for a in args])
+    if rc != 0:
+        fail(f"path H1: cli.dataprep {args} exited {rc}")
+    return out.getvalue(), time.time() - t0
+
+
+def write_config(path, h: dict):
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(h, indent=1))      # YAML's JSON subset
+    return path
+
+
+def check_pack(text: str, pack, manifest_csv, tag: str) -> dict:
+    """The pack's printed stats against its manifest and its files."""
+    from speakerverification_tpu_torch.data.manifest import Manifest
+    stats = json.loads(text.strip().splitlines()[-1])
+    on_disk = sum(f.stat().st_size for f in pack.glob("shard-*.bin"))
+    n = len(Manifest.read(manifest_csv))
+    if stats["utts"] != n or stats["bytes"] != on_disk or \
+            stats["requantized"] != 0:
+        fail(f"path {tag}: pack {stats} for {n} utterances, {on_disk} "
+             f"bytes on disk")
+    return stats
+
+
+def check_noise_verbs(tmp, noise_root, sr: int) -> None:
+    """``--stats``, ``--vad``, ``--restore`` and ``--split_musan`` on the
+    noise corpus, each count held against one made here: the standard
+    library's ``wave`` module for the files and their hours, the files
+    left on disk, and the chunks a 5 s window every 3 s cuts."""
+    import wave
+
+    import numpy as np
+    from speakerverification_tpu_torch.data.audio import write_wav
+    cfg = write_config(tmp / "noise.yaml", {
+        "data_folder": str(noise_root), "noise_folder": str(tmp / "musan_src"),
+        "train_annotation": str(tmp / "unused" / "train.csv")})
+    files = sorted(noise_root.rglob("*.wav"))
+    seconds = 0.0
+    for f in files:
+        with wave.open(str(f), "rb") as w:
+            seconds += w.getnframes() / w.getframerate()
+    text, _ = dataprep_cli("--config", cfg, "--stats")
+    stats = json.loads(text)
+    if stats["n_files"] != len(files) or \
+            abs(stats["total_hours"] - seconds / 3600) > 1e-9:
+        fail(f"path H1: --stats {stats} against {len(files)} files, "
+             f"{seconds} s")
+    # stationary noise holds no voiced frame: tone bursts in silence are
+    # added for --vad to find, and taken away after --restore
+    rng = np.random.default_rng(50)
+    tt = np.arange(3 * sr) / sr
+    probes = noise_root / "vad_probe"
+    for i in range(4):
+        burst = (np.sin(2 * np.pi * 1.1 * tt) > 0) * 0.4 * np.sin(
+            2 * np.pi * (180 + 40 * i) * tt)
+        write_wav(probes / f"p{i}.wav", (burst + rng.normal(
+            0, 0.003, tt.size)).astype(np.float32), sr)
+    text, vad_s = dataprep_cli("--config", cfg, "--vad")
+    n_vad = int(text.split("vad: ")[1].split()[0])
+    made = sorted(noise_root.rglob("*_vad.wav"))
+    text, _ = dataprep_cli("--config", cfg, "--restore")
+    removed = int(text.split("removed ")[1].split()[0])
+    for f in probes.iterdir():
+        f.unlink()
+    probes.rmdir()
+    left = sorted(noise_root.rglob("*.wav"))
+    if not (n_vad == len(made) == removed >= 4) or left != files:
+        fail(f"path H1: --vad wrote {n_vad} ({len(made)} on disk, 4 probes "
+             f"at least), --restore removed {removed}, {len(left)} of "
+             f"{len(files)} files left")
+    want = 0
+    for i, secs in enumerate((9.5, 20.0, 31.0)):
+        for cat in ("noise", "music", "speech"):
+            n = int(secs * sr)
+            write_wav(tmp / "musan_src" / "musan" / cat / "set" / f"{i}.wav",
+                      rng.uniform(-0.3, 0.3, n).astype(np.float32), sr)
+            want += len(range(0, n - 5 * sr, 3 * sr))
+    text, _ = dataprep_cli("--config", cfg, "--split_musan")
+    got = int(text.split("split_musan: ")[1].split()[0])
+    on_disk = len(list((tmp / "musan_src" / "musan_split").rglob("*.wav")))
+    if not got == on_disk == want:
+        fail(f"path H1: --split_musan cut {got} chunks ({on_disk} on "
+             f"disk), {want} expected")
+    log(f"[H1 noise verbs] --stats {stats['n_files']} files, "
+        f"{stats['total_hours']:.5f} h (wave module: {len(files)}, "
+        f"{seconds / 3600:.5f}); --vad {n_vad} files (4 of them tone "
+        f"bursts) in {vad_s:.2f} s, "
+        f"--restore removed {removed}; --split_musan {got} chunks")
+
+
+def read_costs(paths, spec, src, card: str, n: int = 1024) -> dict:
+    """CPU ms per train crop on one thread, for each read path: the
+    native reader and the NumPy parser (each decode then ``load_wav``'s
+    crop), and a shard crop; and the file path's parts on their own: the
+    file's bytes read, the NumPy decode of bytes already in memory, and
+    the crop of audio already decoded."""
+    from pathlib import Path
+
+    import numpy as np
+    from speakerverification_tpu_torch.data import wavio
+    from speakerverification_tpu_torch.data.audio import load_wav
+    n = min(n, len(paths))
+    raw = [Path(p).read_bytes() for p in paths[:n]]
+    decoded = [wavio._decode_wav(b)[0] for b in raw]
+
+    def crop(audio, rng):
+        return load_wav(audio, spec, evalmode=False, rng=rng,
+                        normalize=False)
+    ways = {"native": lambda i, rng: crop(
+                wavio.read_wav_native(paths[i])[0], rng),
+            "numpy": lambda i, rng: crop(
+                wavio._read_wav_python(paths[i])[0], rng),
+            "shard": lambda i, rng: src.crop_train(i, spec, rng=rng),
+            "file read alone": lambda i, rng: Path(paths[i]).read_bytes(),
+            "NumPy decode in memory": lambda i, rng: wavio._decode_wav(
+                raw[i]),
+            "crop alone": lambda i, rng: crop(decoded[i], rng)}
+    out, crops = {}, {}
+    for name, fn in ways.items():
+        rng = np.random.default_rng(0)
+        c0, t0 = time.process_time(), time.perf_counter()
+        crops[name] = [fn(i, rng) for i in range(n)]
+        out[name] = {"cpu_ms": (time.process_time() - c0) * 1e3 / n,
+                     "wall_ms": (time.perf_counter() - t0) * 1e3 / n}
+    for name in ("numpy", "shard", "crop alone"):
+        if not all(np.array_equal(a, b) for a, b in
+                   zip(crops[name], crops["native"])):
+            fail(f"path H2: the {name} path's crops differ from the native "
+                 f"reader's")
+    sr, frames, _ = wavio.wav_info(paths[0])
+    log(f"[H2 read cost] per crop on one thread over {n} crops of "
+        f"{spec.max_audio} samples from {frames / sr:.1f} s files: "
+        + ", ".join(
+            f"{k} {v['cpu_ms']:.4f} ms CPU ({v['wall_ms']:.4f} wall)"
+            for k, v in out.items()) + f"; crops equal ({card})")
+    return out
+
+
+def same_batches(h_files: dict, h_shards: dict, label: str,
+                 n: int = 2) -> None:
+    """The first ``n`` batches of the shard-fed loader equal the WAV-fed
+    loader's, bit for bit (16-bit mono sources)."""
+    import numpy as np
+    from speakerverification_tpu_torch.data.loader import train_data_loader
+    files, shards = train_data_loader(h_files), train_data_loader(h_shards)
+    if shards.shard_source is None or files.shard_source is not None:
+        fail("path H2: the loaders' sources are not as configured")
+    for i, (a, b) in enumerate(zip(files, shards)):
+        if i == n:
+            break
+        if not (np.array_equal(a["wave"], b["wave"])
+                and np.array_equal(a["label"], b["label"])):
+            fail(f"path H2: shard batch {i} differs from the WAV batch "
+                 f"({label})")
+    log(f"[H2 batches] {label}: the first {n} shard-fed batches equal the "
+        f"WAV-fed ones bit for bit")
+
+
+def fed_loop(h: dict, label: str, card: str, built, feed, steps: int = 8,
+             step_args=()) -> float:
+    """The train step fed by ``feed`` (a loader, or a list of batches in
+    memory), as ``Trainer.train_epoch`` feeds it: ms per step over
+    ``steps`` steps after 2, the window ending in one synchronize (the
+    host queues the next step while the card runs this one)."""
+    import torch
+    state, step = built
+
+    def batches():
+        epoch = 1
+        while True:
+            if isinstance(feed, list):
+                yield from feed
+            else:
+                feed.set_epoch(epoch)
+                yield from feed
+            epoch += 1
+    it = batches()
+    t0 = None
+    for n, batch in enumerate(it, start=1):
+        wave = torch.from_numpy(batch["wave"]).to(E_DEVICE)
+        label_ = torch.from_numpy(batch["label"]).to(E_DEVICE)
+        state, m = step(state, wave, label_, h["lr"], *step_args)
+        if n == 2:
+            torch.cuda.synchronize()
+            t0 = time.time()
+        if n == steps + 2:
+            break
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) / steps * 1e3
+    it.close()
+    log(f"[H3 loop {label}] {ms:.1f} ms per step over {steps} steps, loss "
+        f"{float(m['loss']):.4f} ({card})")
+    return ms
+
+
+def path_h3(h_wav: dict, h_shard: dict, noise8: dict, card: str) -> dict:
+    """The G1 step (64 crops, fp32, 8 kHz) alone and fed: by batches
+    already in memory, by the native-WAV loader and the shard loader, and
+    by the shard loader with ``device_augment`` in the step (G2's
+    setting)."""
+    import torch
+    from speakerverification_tpu_torch.data.loader import train_data_loader
+    from speakerverification_tpu_torch.training.trainer import (
+        device_augmentation,
+    )
+    built = train_state(h_wav, E_DEVICE)
+    alone = time_steps("fp32 alone", h_wav, card, tag="H3", built=built)
+    native = train_data_loader(h_wav)
+    feeds = {"in memory": [b for b, _ in zip(native, range(10))],
+             "native WAV": native, "shards": train_data_loader(h_shard)}
+    loops = {name: fed_loop(h_wav, name, card, built, feed)
+             for name, feed in feeds.items()}
+    del built, feeds
+    h_dev = {**augmented(h_shard, RAW3_AUGMENT, noise8),
+             "device_augment": True, "device_time_augment": "np"}
+    loader = train_data_loader(h_dev)
+    fn, banks, _ = device_augmentation(h_dev, loader, E_DEVICE)
+    if loader.augmentor is not None or banks is None:
+        fail("path H3: env_corrupt did not move to the device")
+    built = train_state(h_dev, E_DEVICE, augment_fn=fn)
+    gen = torch.Generator(E_DEVICE).manual_seed(1000)
+    loops["shards + device_augment np"] = fed_loop(
+        h_dev, "shards + device_augment np", card, built, loader,
+        step_args=(gen, banks))
+    floor = alone["ms"]
+    log(f"[H3] step alone {floor:.2f} ms (busy {100 * alone['busy']:.1f} %);"
+        f" fed, one sync: " + ", ".join(
+            f"{k} {v:.1f} ms ({v - floor:+.1f})" for k, v in loops.items())
+        + f" ({card})")
+    return {"alone": alone, "loops": loops}
+
+
+def path_h5(card: str) -> dict:
+    """G3's ECAPA_TDNN-1024 step (256 x 32,000, AAmSoftmax over 5,994,
+    without SpecAugment) with and without ``remat``: ms, peak memory, and
+    each top-level module's gradient, card against card."""
+    import torch
+    h = dict(ECAPA_TRAIN_HPARAMS)
+    hr = {**h, "model": {**h["model"], "remat": True}}
+    out = {"plain": time_steps("no remat", h, card, tag="H5"),
+           "remat": time_steps("remat", hr, card, tag="H5")}
+    n_spk = int(h["dataloader_options"]["batch_size"])
+    wave, label = seeded_batch(23, n_spk, 2, h)
+    wave = torch.from_numpy(wave).to(E_DEVICE)
+    label = torch.from_numpy(label).to(E_DEVICE)
+    grads = {}
+    for key, hh in (("plain", h), ("remat", hr)):
+        state, _ = train_state(hh, E_DEVICE)
+        if state.model.backbone.remat != (key == "remat"):
+            fail(f"path H5: model.remat did not reach the model ({key})")
+        grads[key] = {k: g.detach().cpu() for k, g in
+                      loss_grads(state, wave, label).items()}
+        del state
+    cos = {}
+    for branch in sorted({k.split(".")[1] if k.startswith("backbone.")
+                          else k.split(".")[0] for k in grads["plain"]}):
+        keys = [k for k in grads["plain"]
+                if k.startswith((f"backbone.{branch}.", f"{branch}."))]
+        zeros = {k: 0 * grads["plain"][k] for k in keys}
+        cos[branch] = update_cosine({k: grads["remat"][k] for k in keys},
+                                    zeros, {k: grads["plain"][k]
+                                            for k in keys})[0]
+    low = min(cos.values())
+    log(f"[H5] remat: {out['remat']['ms']:.2f} ms per step against "
+        f"{out['plain']['ms']:.2f} (x{out['remat']['ms'] / out['plain']['ms']:.3f}), "
+        f"peak {out['remat']['peak_gib']:.2f} GiB against "
+        f"{out['plain']['peak_gib']:.2f}; gradient cosine remat vs not by "
+        f"module (bar 0.99999): {json.dumps({k: round(v, 7) for k, v in cos.items()})} "
+        f"{'ok' if low >= 0.99999 else 'FAIL'} ({card})")
+    if low < 0.99999:
+        fail("path H5: remat changes the gradient")
+    out["cosines"] = cos
+    return out
+
+
+def path_h(tmp, card: str) -> dict:
+    """The data path on the card (H0-H5): G's corpora prepared and packed
+    by ``cli.dataprep``, the readers' cost, the loaders feeding the step,
+    ``--do_train`` from shards, ``remat``."""
+    from speakerverification_tpu_torch.data import shards
+    corpora = g_corpora(tmp)
+    noise8 = corpora["noise8"]
+    hdir = tmp / "h"
+    hdir.mkdir(exist_ok=True)
+    path_h0(hdir, card)
+    counts = dict.fromkeys(KERNELS, 0)
+
+    # H1: prepare and pack
+    base = {**RAW3_TRAIN_HPARAMS, "data_folder": str(tmp / "g1" / "data"),
+            "train_annotation": str(hdir / "meta8" / "train.csv")}
+    pack8 = hdir / "pack8"
+    text, wall = dataprep_cli("--config",
+                              write_config(hdir / "prep8.yaml", base),
+                              "--generate", "--pack", pack8)
+    gen = json.loads(text.strip().splitlines()[0])
+    p8 = check_pack(text, pack8, base["train_annotation"], "H1")
+    h16 = {**ECAPA_TRAIN_HPARAMS,
+           "train_annotation": str(tmp / "g3" / "meta" / "train.csv")}
+    pack16 = hdir / "pack16"
+    text, wall16 = dataprep_cli("--config",
+                                write_config(hdir / "prep16.yaml", h16),
+                                "--pack", pack16)
+    p16 = check_pack(text, pack16, h16["train_annotation"], "H1")
+    log(f"[H1 prepare] --generate --pack at 8 kHz: {gen}, {p8['utts']} "
+        f"utterances into {p8['shards']} shard(s) of {p8['bytes']} bytes, "
+        f"requantized {p8['requantized']}, {wall:.2f} s; --pack at 16 kHz: "
+        f"{p16['utts']} utterances, {p16['bytes']} bytes, requantized "
+        f"{p16['requantized']}, {wall16:.2f} s ({card})")
+    check_noise_verbs(hdir, tmp / "noise8k",
+                      RAW3_TRAIN_HPARAMS["audio_spec"]["sample_rate"])
+
+    # H2: the readers' cost on the host
+    src = shards.ShardedAudioSource(pack8)
+    from speakerverification_tpu_torch.data.audio import AudioSpec
+    from speakerverification_tpu_torch.data.manifest import Manifest
+    manifest = Manifest.read(base["train_annotation"])
+    costs = read_costs(manifest.paths, AudioSpec(base["audio_spec"]), src,
+                       card)
+    h_shard = {**base, "dataloader_options": {
+        **base["dataloader_options"], "shards": str(pack8)}}
+    nw = int(base["dataloader_options"]["num_workers"])
+    sweep = {}
+    for src_name, hh in (("native WAV", base), ("shards", h_shard)):
+        for aug in ("augment off", "host augment"):
+            h_run = hh if aug == "augment off" else augmented(
+                hh, RAW3_AUGMENT, noise8)
+            for w in (1, nw):
+                sweep[src_name, aug, w] = loader_epoch(
+                    h_run, f"{src_name} {aug}", card, w, tag="H2")
+    for (src_name, aug, w), v in sweep.items():
+        if w == 1:
+            many = sweep[src_name, aug, nw]
+            log(f"[H2 loader threads] {src_name} {aug}: {v['ms']:.1f} ms "
+                f"per batch on 1 thread ({v['cores']:.2f} cores busy), "
+                f"{many['ms']:.1f} ms on {nw} ({many['cores']:.2f} cores "
+                f"busy): x{v['ms'] / many['ms']:.2f} ({card})")
+    same_batches(base, h_shard, "augment off")
+    same_batches(augmented(base, RAW3_AUGMENT, noise8),
+                 augmented(h_shard, RAW3_AUGMENT, noise8), "host augment")
+
+    # H3: the loaders feeding the step
+    reset_counts()
+    h3 = path_h3(base, h_shard, noise8, card)
+    c = read_counts()
+    for k in KERNELS:
+        counts[k] += c[k]
+
+    # H4: --do_train from shards, then --do_infer --eval
+    pack4 = tmp / "h4" / "pack"
+    h4 = {**RAW3_TRAIN_HPARAMS, "dataloader_options": {
+        **RAW3_TRAIN_HPARAMS["dataloader_options"], "shards": str(pack4)}}
+    reads = []
+    real = shards.ShardedAudioSource.crop_train
+
+    def counted(self, *args, **kwargs):
+        reads.append(1)
+        return real(self, *args, **kwargs)
+    shards.ShardedAudioSource.crop_train = counted
+    try:
+        h4_out = path_e4(tmp / "h4", card, h4, tag="H4",
+                         prepare=lambda cfg: dataprep_cli(
+                             "--config", cfg, "--pack", pack4))
+    finally:
+        shards.ShardedAudioSource.crop_train = real
+    crops = h4_out["steps"] * int(h4["dataloader_options"]["batch_size"]) \
+        * int(h4["dataloader_options"]["nPerSpeaker"])
+    if len(reads) < crops:
+        fail(f"path H4: {len(reads)} shard crops read for {crops} crops "
+             f"trained on")
+    log(f"[H4] --do_train read {len(reads)} crops from the shards for "
+        f"{h4_out['steps']} steps ({crops} crops)")
+    for k in KERNELS:
+        counts[k] += h4_out["counts"][k]
+
+    # H5: remat
+    reset_counts()
+    h5 = path_h5(card)
+    c = read_counts()
+    for k in KERNELS:
+        counts[k] += c[k]
+    log(f"[H] launches over H0-H5: {counts}")
+    if counts["mel_frontend"] < 1 or counts["res2net_cascade"] \
+            or counts["quant_matmul"]:
+        fail(f"path H: unexpected launches {counts}")
+    return {"counts": counts, "read_costs": costs, "h3": h3, "h5": h5,
+            "epochs_s": h4_out["epochs_s"]}
 
 
 # ----------------------------------------------------------------------
@@ -2760,6 +3267,29 @@ def forwards() -> None:
         del engine
 
 
+def data_path() -> None:
+    """Path H alone, path G's corpora written first, after the kernels'
+    build: the quick check of the data path."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_kernels()
+    tmp = Path(tempfile.mkdtemp(prefix="svtorch_data_"))
+    try:
+        out = path_h(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[H] passed in {time.time() - T_START:.1f} s; launches "
+        f"{out['counts']} ({card})")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2827,11 +3357,12 @@ def main() -> None:
     tmp = Path(tempfile.mkdtemp(prefix="svtorch_augment_"))
     try:
         g = path_g(tmp, card)
+        h = path_h(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths = {"A": a["counts"], "B": b["counts"], "C": c["counts"],
              "D": d["counts"], "E": e["counts"], "F": f["counts"],
-             "G": g["counts"]}
+             "G": g["counts"], "H": h["counts"]}
     by_path = {k: {p: counts[k] for p, counts in paths.items()}
                for k in KERNELS}
 
@@ -2871,6 +3402,8 @@ def main() -> None:
         fail(f"JAX or the JAX package was imported: {jaxish[:5]}")
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(card, flush=True)
+    print(f"[wall] {time.time() - T_START:.1f} s for the whole script",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2884,5 +3417,7 @@ if __name__ == "__main__":
         f2_conv_variant(" ".join(sys.argv[2:]))
     elif sys.argv[1:2] == ["--forwards"]:
         forwards()
+    elif sys.argv[1:2] == ["--data-path"]:
+        data_path()
     else:
         main()

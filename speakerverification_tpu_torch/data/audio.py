@@ -9,18 +9,17 @@
 * ``load_all``: the whole signal ``[1, T]``, uncropped (impulse
   responses are read so).
 
-WAV files are read with the standard library's ``wave`` module, 16-bit
-PCM only, scaled by 1/32768 and averaged to mono; :func:`write_wav`
-writes them the same way.
+WAV files are read and written by ``data/wavio.py`` (the native decoder,
+or its NumPy parser): PCM 16/24/32-bit and float, averaged to mono.
 """
 
 from __future__ import annotations
 
-import wave
-from pathlib import Path
 from typing import Mapping, Optional, Union
 
 import numpy as np
+
+from speakerverification_tpu_torch.data.wavio import read_wav, write_wav
 
 __all__ = ["AudioSpec", "load_wav", "normalize_amplitude", "read_wav",
            "write_wav"]
@@ -53,35 +52,6 @@ def normalize_amplitude(audio: np.ndarray, eps: float = 1e-12) -> np.ndarray:
     return (audio / max(peak, eps)).astype(np.float32)
 
 
-def read_wav(path: str) -> tuple[np.ndarray, int]:
-    """Decode a 16-bit PCM WAV file → (mono float32 array, sample_rate)."""
-    with wave.open(str(path), "rb") as f:
-        if f.getsampwidth() != 2 or f.getcomptype() != "NONE":
-            raise ValueError(f"{path}: only 16-bit PCM WAV is supported")
-        channels, sr = f.getnchannels(), f.getframerate()
-        data = f.readframes(f.getnframes())
-    x = np.frombuffer(data, dtype="<i2").astype(np.float32) / 32768.0
-    if channels > 1:
-        x = x.reshape(-1, channels).mean(axis=1)
-    return np.ascontiguousarray(x, dtype=np.float32), sr
-
-
-def write_wav(path: Union[str, Path], audio: np.ndarray,
-              sample_rate: int) -> None:
-    """Write float audio ``[T]`` or ``[T, channels]`` in [-1, 1] as 16-bit
-    PCM (``x * 32767``, truncated, as the JAX package writes it)."""
-    audio = np.asarray(audio)
-    if audio.ndim == 1:
-        audio = audio[:, None]
-    Path(path).parent.mkdir(parents=True, exist_ok=True)
-    with wave.open(str(path), "wb") as f:
-        f.setnchannels(audio.shape[1])
-        f.setsampwidth(2)
-        f.setframerate(int(sample_rate))
-        f.writeframes((np.clip(audio, -1.0, 1.0) * 32767.0).astype("<i2")
-                      .tobytes())
-
-
 def load_wav(source: Union[str, np.ndarray], spec: Optional[Mapping] = None,
              num_eval: int = 10, *, evalmode: bool = True,
              random_chunk: bool = True, load_all: bool = False,
@@ -90,9 +60,8 @@ def load_wav(source: Union[str, np.ndarray], spec: Optional[Mapping] = None,
     """Load audio and cut its crops: eval mode ``[num_eval, T]`` float32,
     or ``[1, whole]`` for ``num_eval == 0`` or ``load_all``; train mode
     ``[1, T]``. A WAV path must match the configured sample rate; an
-    ndarray source is peak-normalized unless ``normalize`` is off (the
-    training loader's re-crop after a time-domain augmentation keeps its
-    volume gain so)."""
+    ndarray source is peak-normalized unless ``normalize`` is off (the training loader's re-crop after a
+    time-domain augmentation keeps its volume gain so)."""
     spec = AudioSpec(spec)
 
     if isinstance(source, str):

@@ -12,8 +12,13 @@ With ``augment: true`` each crop goes through ``augment_options``'
 ``augment_chain`` in the JAX loader's order, every draw from the tuple's
 generator: ``time_domain`` (``data/augment.py``), a re-crop to the crop
 length that keeps the gain, then ``env_corrupt`` (MUSAN noise and
-simulated RIRs). Packed shards (``dataloader_options.shards``) are not
-ported and are refused by name.
+simulated RIRs).
+
+With packed shards (``dataloader_options.shards``, written by
+``cli.dataprep --pack``; ``data/shards.py``) each crop is one read from
+a memory-mapped shard instead of a WAV decode, with the same draws, so
+the batches are the file path's. A pack of another sample rate, length
+or manifest is refused.
 """
 
 from __future__ import annotations
@@ -33,6 +38,10 @@ from speakerverification_tpu_torch.data.augment import (
 )
 from speakerverification_tpu_torch.data.manifest import Manifest
 from speakerverification_tpu_torch.data.sampler import SpeakerBatchSampler
+from speakerverification_tpu_torch.data.shards import (
+    ShardedAudioSource,
+    manifest_fingerprint,
+)
 
 __all__ = ["EvalDataLoader", "TrainDataLoader", "train_data_loader"]
 
@@ -44,6 +53,26 @@ def _usable_cpus() -> int:
         return len(os.sched_getaffinity(0)) or 1
     except AttributeError:                       # non-Linux
         return os.cpu_count() or 1
+
+
+def _check_pack(source: ShardedAudioSource, manifest: Manifest,
+                sample_rate: int) -> None:
+    """Refuse a pack that is not this manifest's at this sample rate (the
+    file path checks the rate per file; a stale pack would train on
+    time-stretched or mislabeled audio)."""
+    repack = "repack (cli.dataprep --pack)"
+    if source.sample_rate != sample_rate:
+        raise ValueError(
+            f"shard pack is {source.sample_rate} Hz but "
+            f"audio_spec.sample_rate={sample_rate} — {repack}")
+    if len(source) != len(manifest):
+        raise ValueError(f"shard index has {len(source)} utts, manifest "
+                         f"{len(manifest)} — {repack}")
+    want = manifest_fingerprint(manifest.paths)
+    if source.manifest_sha1 is not None and source.manifest_sha1 != want:
+        raise ValueError(
+            "shard index was packed from a different manifest (sha1 "
+            f"{source.manifest_sha1[:12]} != {want[:12]}) — {repack}")
 
 
 class EvalDataLoader:
@@ -90,9 +119,13 @@ class TrainDataLoader:
                  augment_options: Optional[Mapping] = None,
                  random_chunk: bool = True, num_workers: int = 8,
                  prefetch: int = 4, seed: int = 0, num_replicas: int = 1,
-                 rank: int = 0):
+                 rank: int = 0,
+                 shard_source: Optional[ShardedAudioSource] = None):
         self.manifest = manifest
         self.spec = AudioSpec(audio_spec)
+        self.shard_source = shard_source
+        if shard_source is not None:
+            _check_pack(shard_source, manifest, self.spec.sample_rate)
         self.batch_size = batch_size
         self.n_per_speaker = nPerSpeaker
         self.random_chunk = random_chunk
@@ -134,9 +167,13 @@ class TrainDataLoader:
         augmentor = self.augmentor
         crops = []
         for idx in index_tuple:
-            audio = load_wav(self.manifest.paths[idx], self.spec,
-                             evalmode=False, random_chunk=self.random_chunk,
-                             rng=rng)                       # [1, T]
+            if self.shard_source is not None:
+                audio = self.shard_source.crop_train(
+                    idx, self.spec, rng=rng, random_chunk=self.random_chunk)
+            else:
+                audio = load_wav(self.manifest.paths[idx], self.spec,
+                                 evalmode=False,
+                                 random_chunk=self.random_chunk, rng=rng)
             if time_domain:
                 audio = random_time_domain_augment(
                     audio, self.augment_options.get("augment_time_domain",
@@ -218,15 +255,14 @@ class TrainDataLoader:
 def train_data_loader(hparams: Mapping, num_replicas: int = 1,
                       rank: int = 0) -> TrainDataLoader:
     """The training loader of a config (``train_annotation``,
-    ``dataloader_options``, ``audio_spec``, ``augment``,
-    ``augment_options``, ``random_chunk``, ``seed``)."""
+    ``dataloader_options`` with its optional ``shards`` directory,
+    ``audio_spec``, ``augment``, ``augment_options``, ``random_chunk``,
+    ``seed``)."""
     opts = hparams.get("dataloader_options", {}) or {}
-    if opts.get("shards"):
-        raise NotImplementedError(
-            "dataloader_options.shards (packed shards, data/shards.py) is "
-            "not ported yet: train from the WAV manifest")
     return TrainDataLoader(
         manifest=Manifest.read(hparams["train_annotation"]),
+        shard_source=(ShardedAudioSource(opts["shards"])
+                      if opts.get("shards") else None),
         audio_spec=hparams["audio_spec"],
         batch_size=int(opts.get("batch_size", hparams.get("batch_size", 32))),
         nPerSpeaker=int(opts.get("nPerSpeaker", 1)),

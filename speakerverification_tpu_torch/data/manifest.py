@@ -3,20 +3,20 @@
 
 A CSV with a header whose rows are ``speaker_id,path,duration,
 audio_format``. Speaker labels are the sorted unique speaker ids mapped
-to contiguous integers. Durations come from the WAV headers, read with
-the standard library's ``wave`` module (16-bit PCM, as
-``data/audio.read_wav`` reads them).
+to contiguous integers. Durations come from the WAV headers
+(``data/wavio.wav_info``).
 """
 
 from __future__ import annotations
 
 import csv
 import dataclasses
-import wave
 from pathlib import Path
 from typing import Iterable, Sequence
 
 import numpy as np
+
+from speakerverification_tpu_torch.data.wavio import wav_info
 
 __all__ = ["Manifest", "generate_metadata"]
 
@@ -86,8 +86,7 @@ def generate_metadata(data_folder: str | Path,
         by_speaker[spk_dir.name] = files
 
     def row(spk: str, f: Path):
-        with wave.open(str(f), "rb") as w:
-            sr, n = w.getframerate(), w.getnframes()
+        sr, n, _ = wav_info(f)
         return [spk, str(f), round(n / sr, 3), f.suffix.lstrip(".")]
 
     train_rows, dev_rows = [], []

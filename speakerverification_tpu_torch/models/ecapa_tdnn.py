@@ -5,20 +5,29 @@ feature aggregation → TDNN → attentive statistics pooling → BatchNorm
 → linear projection. Takes features ``[B, frames, n_mels]`` like the
 JAX module and returns ``[B, lin_neurons]``; inside, activations are
 ``[B, C, frames]``.
+
+``remat`` recomputes each SE-Res2Net block in the backward pass of a
+training forward instead of keeping its activations (JAX's
+``nn.remat``); eval ignores it, as the JAX engine drops it. The module
+names, and so the ``state_dict`` keys, are the same either way.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn as nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from speakerverification_tpu_torch.models.layers import (
     AttentiveStatisticsPooling,
     BatchNorm1d,
     SERes2NetBlock,
     TDNNBlock,
+    frozen_running_stats,
     gelu_exact,
     promoted,
 )
@@ -37,8 +46,9 @@ class ECAPA_TDNN(nn.Module):
                  activation: Callable = gelu_exact,
                  feature_type: str = "melspectrogram",
                  log_input: bool = True, input_norm: bool = False,
-                 conv_backend: str = "xla"):
+                 conv_backend: str = "xla", remat: bool = False):
         super().__init__()
+        self.remat = remat
         if not len(channels) == len(kernel_sizes) == len(dilations):
             raise ValueError("channels, kernel_sizes and dilations differ "
                              "in length")
@@ -80,13 +90,30 @@ class ECAPA_TDNN(nn.Module):
         x = self.TDNNBlock_0(x.transpose(1, 2))               # [B, C, frames]
         block_outputs = []
         for i in range(self.n_blocks):
-            x = getattr(self, f"SERes2NetBlock_{i}")(x, lengths)
+            x = self._block(getattr(self, f"SERes2NetBlock_{i}"), x, lengths)
             block_outputs.append(x)
         # multi-layer feature aggregation over the SE-Res2Net outputs
         x = self.TDNNBlock_1(torch.cat(block_outputs, dim=1))
         x = self.AttentiveStatisticsPooling_0(x, lengths)     # [B, 2C]
         x = self.BatchNorm1d_0(x)
         return promoted(self.Dense_0, x)
+
+    def _block(self, block: SERes2NetBlock, x: torch.Tensor,
+               lengths: Optional[torch.Tensor]) -> torch.Tensor:
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return block(x, lengths)
+        # the block's tensors as this forward sees them (the train step's
+        # bf16 copies live only inside its functional_call), so that the
+        # recomputation uses the same ones; it leaves the BatchNorm
+        # running statistics as the forward updated them, and the block
+        # draws no random numbers
+        tensors = {**dict(block.named_parameters()),
+                   **dict(block.named_buffers())}
+        return checkpoint(
+            functional_call, block, tensors, (x, lengths),
+            use_reentrant=False, preserve_rng_state=False,
+            context_fn=lambda: (contextlib.nullcontext(),
+                                frozen_running_stats()))
 
 
 @MODELS.register("ECAPA_TDNN")
@@ -95,7 +122,7 @@ def build_ecapa_tdnn(nOut: int = 192, **kwargs) -> ECAPA_TDNN:
     known = {k: kwargs[k] for k in (
         "channels", "kernel_sizes", "dilations", "attention_channels",
         "res2net_scale", "se_channels", "global_context", "input_norm",
-        "log_input", "activation", "conv_backend") if k in kwargs}
+        "log_input", "activation", "conv_backend", "remat") if k in kwargs}
     for k in ("channels", "kernel_sizes", "dilations"):
         if k in known:
             known[k] = tuple(known[k])

@@ -10,7 +10,9 @@ instance norm on). In training, with ``spec_augment`` set (the builder
 sets it when ``augment_chain`` has ``spec_domain``), the mel features go
 through SpecAugment before the cast, drawn from the generator that
 ``forward`` is given. Its Res2Net cascade runs as plain convs, as in the
-JAX hybrid, which does not thread ``conv_backend`` into that branch.
+JAX hybrid, which does not thread ``conv_backend`` into that branch. The
+yaml key ``model.remat`` reaches the ECAPA branch, which then recomputes
+its SE-Res2Net blocks in the backward pass.
 """
 
 from __future__ import annotations
@@ -90,11 +92,12 @@ class RawECAPAHybrid(nn.Module):
         return torch.cat([out1, out2], dim=-1)
 
 
-def _hybrid_ecapa(n_mels: int, input_norm: bool) -> ECAPA_TDNN:
+def _hybrid_ecapa(n_mels: int, input_norm: bool,
+                  remat: bool = False) -> ECAPA_TDNN:
     return ECAPA_TDNN(n_mels=n_mels, lin_neurons=192,
                       channels=(512, 512, 512, 512, 1536),
                       feature_type="melspectrogram",
-                      log_input=False, input_norm=input_norm)
+                      log_input=False, input_norm=input_norm, remat=remat)
 
 
 @MODELS.register("Raw3_ECAPA")
@@ -105,7 +108,8 @@ def build_raw3_ecapa(nOut: int = 512, **kwargs) -> RawECAPAHybrid:
     raw = RawNet3(nOut=nOut - 192, C=int(kwargs.get("C", 1024)),
                   model_scale=8, sinc_stride=10, sample_rate=cfg.sample_rate)
     return RawECAPAHybrid(raw_branch=raw,
-                          ecapa=_hybrid_ecapa(cfg.n_mels, input_norm=True),
+                          ecapa=_hybrid_ecapa(cfg.n_mels, input_norm=True,
+                                              remat=bool(kwargs.get("remat"))),
                           frontend=cfg)
 
 
@@ -116,7 +120,8 @@ def _rawnet2_hybrid(nOut: int, front: str, agg: str, kwargs,
                         att_dim=128, sample_rate=cfg.sample_rate,
                         n_samples=crop_samples(kwargs))
     return RawECAPAHybrid(raw_branch=raw,
-                          ecapa=_hybrid_ecapa(cfg.n_mels, input_norm),
+                          ecapa=_hybrid_ecapa(cfg.n_mels, input_norm,
+                                              bool(kwargs.get("remat"))),
                           frontend=cfg)
 
 
@@ -195,5 +200,6 @@ def build_raw_ecapa_hype(nOut: int = 512, **kwargs) -> RawECAPAHype:
                         att_dim=128, sample_rate=cfg.sample_rate,
                         n_samples=crop_samples(kwargs))
     return RawECAPAHype(raw_branch=raw,
-                        ecapa=_hybrid_ecapa(cfg.n_mels, input_norm=True),
+                        ecapa=_hybrid_ecapa(cfg.n_mels, input_norm=True,
+                                            remat=bool(kwargs.get("remat"))),
                         raw_out=512, nOut=nOut, frontend=cfg)

@@ -12,7 +12,9 @@ the RawNet blocks zero-pad.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import contextlib
+import threading
+from typing import Callable, Iterator, Optional
 
 import torch
 import torch.nn as nn
@@ -31,6 +33,7 @@ __all__ = [
     "gelu_exact",
     "length_to_mask",
     "batch_norm",
+    "frozen_running_stats",
     "bn_module",
     "Conv1d",
     "BatchNorm1d",
@@ -75,6 +78,23 @@ def length_to_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     return (pos < lengths[:, None]).to(torch.float32)
 
 
+_bn_state = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_running_stats() -> Iterator[None]:
+    """Train-mode :func:`batch_norm` in this thread normalizes as always
+    but leaves the running statistics alone: the backward pass's
+    recomputation of a checkpointed block (``remat``) must not update
+    them a second time."""
+    was = getattr(_bn_state, "frozen", False)
+    _bn_state.frozen = True
+    try:
+        yield
+    finally:
+        _bn_state.frozen = was
+
+
 def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
     """``bn`` over the channels of ``x`` (``[B, C]`` or ``[B, C, T]``), as
     flax's ``nn.BatchNorm(momentum=0.9)`` computes it; returns x's dtype.
@@ -94,12 +114,13 @@ def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
         mean = xf.mean(dims)
         var = torch.clamp(torch.square(xf).mean(dims) - torch.square(mean),
                           min=0.0)
-        with torch.no_grad():
-            m = 1.0 - bn.momentum
-            bn.running_mean.copy_(m * bn.running_mean
-                                  + (1.0 - m) * mean.detach())
-            bn.running_var.copy_(m * bn.running_var
-                                 + (1.0 - m) * var.detach())
+        if not getattr(_bn_state, "frozen", False):
+            with torch.no_grad():
+                m = 1.0 - bn.momentum
+                bn.running_mean.copy_(m * bn.running_mean
+                                      + (1.0 - m) * mean.detach())
+                bn.running_var.copy_(m * bn.running_var
+                                     + (1.0 - m) * var.detach())
         mul = torch.rsqrt(var + bn.eps) * bn.weight.to(xf.dtype)
         y = ((xf - mean.view(shape)) * mul.view(shape)
              + bn.bias.to(xf.dtype).view(shape))

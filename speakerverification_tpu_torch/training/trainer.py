@@ -23,8 +23,9 @@ keeps no rng state either).
 
 The model runs on CUDA unless the caller asks for the CPU. Not ported,
 and refused by name: ``distributed``/``data_parallel``,
-``model_parallel > 1``, ``profile`` and ``sharded_checkpoints`` (packed
-shards are refused by the loader).
+``model_parallel > 1``, ``profile`` and ``sharded_checkpoints``. The
+loader reads packed shards when ``dataloader_options.shards`` names a
+pack (``cli.dataprep --pack``).
 """
 
 from __future__ import annotations

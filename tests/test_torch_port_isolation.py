@@ -3,7 +3,9 @@
 A fresh interpreter imports every module of ``speakerverification_tpu_torch``
 and then lists what it has loaded. The names share a prefix, so the
 check is ``name == "speakerverification_tpu"`` or
-``name.startswith("speakerverification_tpu.")``.
+``name.startswith("speakerverification_tpu.")``. The port's WAV reader
+loads the port's own native library, built into its ``_build/``, and
+never the JAX package's ``libsvwav.so``.
 """
 
 import json
@@ -46,7 +48,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                      "models.rawnet2_custom", "losses.proto",
                      "losses.combined", "data.augment", "ops.phase_vocoder",
                      "ops.specaugment", "ops.device_augment",
-                     "ops.timeaugment"):
+                     "ops.timeaugment", "data.wavio", "data.shards",
+                     "data.vad", "data.wav_conversion", "data.quality",
+                     "data.dataprep", "cli.dataprep"):
         assert f"speakerverification_tpu_torch.{expected}" in res["modules"]
     loaded = res["loaded"]
     # the GPU host has neither msgpack, ml_dtypes nor PyYAML: the codec is
@@ -113,3 +117,30 @@ def test_chip_smoke_fails_without_a_gpu_and_alone(tmp_path):
                                   "CUDA_VISIBLE_DEVICES": ""})
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+NATIVE_PROBE = r"""
+import json, sys
+from speakerverification_tpu_torch.data import wavio
+from speakerverification_tpu_torch.data.dataprep import vad_on_dataset
+assert wavio.native_available(), wavio.native_error()
+names = [line.split()[-1] for line in open("/proc/self/maps")
+         if len(line.split()) >= 6]
+libs = sorted({n for n in names if n.endswith(".so") or ".so." in n})
+print(json.dumps({"libs": libs, "loaded": sorted(sys.modules)}))
+"""
+
+
+def test_port_loads_its_own_native_reader():
+    out = subprocess.run([sys.executable, "-c", NATIVE_PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    build = str(ROOT / "speakerverification_tpu_torch" / "_build") + "/"
+    ours = [lib for lib in res["libs"] if lib.startswith(build)]
+    assert len(ours) == 1 and Path(ours[0]).name.startswith("libwavio-"), \
+        res["libs"]
+    assert not [lib for lib in res["libs"] if "libsvwav" in lib
+                or "/speakerverification_tpu/" in lib]
+    assert not [m for m in res["loaded"] if m == "speakerverification_tpu"
+                or m.startswith(("speakerverification_tpu.", "jax"))]

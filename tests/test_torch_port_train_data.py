@@ -147,15 +147,18 @@ def test_train_loader_ends_behind_a_slow_consumer(tmp_path):
     assert seen == len(loader) > 1
 
 
-@pytest.mark.parametrize("extra,match", [
-    ({"dataloader_options": {"shards": "packs/"}}, "shards")],
+@pytest.mark.parametrize("extra,error,match", [
+    ({"dataloader_options": {"shards": "packs/"}}, FileNotFoundError,
+     "shard_index.json")],
     ids=["extra1"])
-def test_unported_data_options_are_refused(tmp_path, extra, match):
+def test_unported_data_options_are_refused(tmp_path, extra, error, match):
+    """Packed shards are ported: a ``shards`` directory that holds no pack
+    is refused by name."""
     h = _hparams(tmp_path)
     if "dataloader_options" in extra:
         extra = {"dataloader_options": {**h["dataloader_options"],
                                         **extra["dataloader_options"]}}
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         t_train_loader({**h, **extra})
 
 

@@ -98,12 +98,13 @@ def _narrow_rawnet2_family(monkeypatch):
     )
     from speakerverification_tpu_torch.models.ecapa_tdnn import ECAPA_TDNN
 
-    def ecapa(n_mels, input_norm):
+    def ecapa(n_mels, input_norm, remat=False):
         return ECAPA_TDNN(n_mels=n_mels, lin_neurons=192,
                           channels=(16, 16, 16, 16, 48),
                           attention_channels=4, se_channels=4,
                           res2net_scale=2, feature_type="melspectrogram",
-                          log_input=False, input_norm=input_norm)
+                          log_input=False, input_norm=input_norm,
+                          remat=remat)
 
     custom = functools.partial(rawnet2_custom.RawNet2Custom,
                                filters=(8, 8, 16, 16, 32, 32), gru_node=16)
@@ -190,3 +191,49 @@ def test_chip_smoke_path_g_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
     assert out["counts"]["mel_frontend"] > 0
     assert out["counts"]["res2net_cascade"] == 0
     assert len(out["epochs_s"]) == 2
+
+
+def test_chip_smoke_path_h_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """Path H (the data path) with small ECAPA_TDNNs in place of Raw3_ECAPA
+    and the 1024-channel ECAPA_TDNN, 0.25 s crops, 4 speakers x 2 crops
+    per step, G's corpora at 8 speakers and 1 s noise files: the native
+    reader, ``cli.dataprep``'s verbs, the readers' costs, the loaders
+    feeding the step, ``--do_train`` from shards and ``remat``."""
+    torch.set_num_threads(2)
+    smoke = _load_smoke()
+    from speakerverification_tpu_torch.ops import mel_frontend as tmf
+    _patch_for_cpu(smoke, tmf, monkeypatch, n_spk=8)
+    noise = smoke.write_noise_corpus
+    monkeypatch.setattr(smoke, "write_noise_corpus",
+                        lambda root, sr: noise(root, sr, n_files=3,
+                                               seconds=1.0, rir_seconds=0.1))
+    small = {"name": "ECAPA_TDNN", "feature_type": "melspectrogram",
+             "nOut": 16, "channels": [16, 16, 16, 16, 48],
+             "attention_channels": 4, "se_channels": 4, "res2net_scale": 2}
+
+    def shrink(h):
+        return {**h, "model": small, "features": "melspectrogram",
+                "nClasses": 300, "num_eval": 2, "frontend_backend": "pallas",
+                "audio_spec": {**h["audio_spec"], "sentence_len": 0.25},
+                "dataloader_options": {**h["dataloader_options"],
+                                       "batch_size": 4, "num_workers": 2}}
+
+    monkeypatch.setattr(smoke, "RAW3_TRAIN_HPARAMS",
+                        shrink(smoke.RAW3_TRAIN_HPARAMS))
+    monkeypatch.setattr(smoke, "ECAPA_TRAIN_HPARAMS",
+                        shrink(smoke.ECAPA_TRAIN_HPARAMS))
+    out = smoke.path_h(tmp_path, "CPU")
+    log = capsys.readouterr().out
+    for tag in ("[H0 reader]", "[H1 prepare]", "[H1 noise verbs]",
+                "[H2 read cost]", "[H2 loader threads] shards host augment",
+                "[H2 batches] host augment",
+                "[H3 loop in memory]", "[H3 loop native WAV]",
+                "[H3 loop shards]", "[H3 loop shards + device_augment np]",
+                "[H3] step alone",
+                "[H4] --do_train read", "[H5] remat"):
+        assert tag in log, tag
+    assert "FAIL" not in log
+    assert out["counts"]["mel_frontend"] > 0
+    assert out["counts"]["res2net_cascade"] == 0
+    assert len(out["epochs_s"]) == 2
+    assert min(out["h5"]["cosines"].values()) >= 0.99999
