@@ -7,6 +7,7 @@
     python3 chip_smoke.py --forwards # only paths A, B and F1's forwards,
                                      # timed (to compare two trees)
     python3 chip_smoke.py --data-path  # only path H (the data path)
+    python3 chip_smoke.py --conformer  # only path I (the Conformer family)
 
 Phases, each of which fails the run:
   1. build the hand-written kernels from ``speakerverification_tpu_torch/csrc``
@@ -70,13 +71,25 @@ Phases, each of which fails the run:
      loader (and by shards with ``device_augment``); H4 ``--do_train``
      from ``dataloader_options.shards``, then ``--do_infer --eval``; H5
      ECAPA_TDNN-1024's step with and without ``model.remat``: ms, peak
-     memory, gradients.
+     memory, gradients;
+ 12. path I: the Conformer family (``yaml/model_plot.yaml``): I1
+     Conformer behind the HTTP app at 8 x 20 crops of 2 s, timed, its
+     peak memory, profiled; I2 the same model with ``quant: int8``
+     (14 launches of K3's Dense route per forward) against the plain
+     int8 path on the CPU and the float path; I3 K3's Dense route at
+     every Conformer and ECAPA_Conformer shape, fp32 and bf16, bit for
+     bit and timed; I4 the Conformer train step (AAmSoftmaxAP over 5,994,
+     AdaBelief): the gradient by module and three steps against the CPU
+     with dropout off, then the 64 x 2-crop step with dropout timed in
+     fp32 and bf16, learning on one batch; I5 ECAPA_Conformer served
+     (against the CPU) and one step, with peak memories; I6
+     ``--do_train`` then ``--do_infer --eval`` through the CLI.
 Every path is compared with the same model's plain path on the CPU.
 
 The script imports nothing of the JAX package. hparams are built in code
 (they mirror ``yaml/raw3_ecapa.yaml``, ``yaml/ecapa_tdnn.yaml``,
-``yaml/voxceleb_raw_ecapa.yaml`` and the yamls of path F3, which a CPU
-test checks). The last line of standard output is the JSON result.
+``yaml/voxceleb_raw_ecapa.yaml``, the yamls of path F3 and
+``yaml/model_plot.yaml``, which CPU tests check). The last line of standard output is the JSON result.
 """
 
 from __future__ import annotations
@@ -287,6 +300,12 @@ def check_mel_kernel(dev, gen):
               # path G3: ECAPA_TDNN's train step, 128 speakers x 2 crops
               ("ecapa_tdnn 16k train", FrontendConfig.from_hparams(
                   dict(ECAPA_TDNN_HPARAMS), "melspectrogram"), 128 * 2,
+               32000),
+              # path I4: the Conformer's train step, 64 speakers x 2 crops
+              # (model_plot.yaml's frontend is path F's, so I1 and I5
+              # serve at the "raw_ecapa 16k" shape)
+              ("model_plot 16k train", FrontendConfig.from_hparams(
+                  dict(CONFORMER_HPARAMS), "melspectrogram"), 64 * 2,
                32000),
               # an odd window (its centre is n_fft/2 - 1/2): the kernel's
               # unfolded route; no configuration of the repo uses one
@@ -1132,18 +1151,21 @@ def quant_shape_log():
         handle.remove()
 
 
-def log_quant_shapes(shapes, forwards: int) -> None:
-    """The logged shapes per forward against ``QUANT_SHAPES``."""
-    table = {(tuple(s), n): per for s, n, per, _ in QUANT_SHAPES if per}
+def log_quant_shapes(shapes, forwards: int, table=None,
+                     tag: str = "C") -> bool:
+    """The logged shapes per forward against ``table`` (default
+    ``QUANT_SHAPES``); whether they match."""
+    rows = QUANT_SHAPES if table is None else table
+    want = {(tuple(s), n): per for s, n, per, _ in rows if per}
     seen = {}
     for (shape, n, dtype), calls in sorted(shapes.items()):
         seen[(tuple(shape), n)] = seen.get((tuple(shape), n), 0) + calls
-        log(f"[C shapes] x {list(shape)} N {n} {dtype}: "
+        log(f"[{tag} shapes] x {list(shape)} N {n} {dtype}: "
             f"{calls / forwards:g} per forward")
     per_fwd = {k: v / forwards for k, v in seen.items()}
-    log(f"[C shapes] {'match' if per_fwd == table else 'DIFFER FROM'} "
-        f"chip_smoke.QUANT_SHAPES ({sum(per_fwd.values()):g} launches per "
-        f"forward)")
+    log(f"[{tag} shapes] {'match' if per_fwd == want else 'DIFFER FROM'} "
+        f"the table ({sum(per_fwd.values()):g} launches per forward)")
+    return per_fwd == want
 
 
 def path_c_bf16(c: dict, card: str) -> None:
@@ -2096,21 +2118,23 @@ def write_train_corpus(root, sr: int, n_spk: int = 64, n_utt: int = 4,
 
 
 def path_e4(tmp, card: str, h: dict, tag: str = "E4",
-            train_args=(), prepare=None) -> dict:
+            train_args=(), prepare=None, epochs: int = 2,
+            n_spk: int = 64) -> dict:
     """``--do_train`` through the CLI on the yaml's training keys (paths and
-    number_of_epochs: 2 changed) over a synthetic manifest, then
+    number_of_epochs: ``epochs`` changed) over a synthetic manifest, then
     ``--do_infer --eval`` of the trained checkpoint, in this process so
     that the kernels' launches are counted. ``prepare(config_path)`` runs
-    between writing the config and training."""
+    between writing the config and training; the corpus has ``n_spk``
+    speakers."""
     import io
     import re
     from speakerverification_tpu_torch.cli.main import main as cli_main
     sr = h["audio_spec"]["sample_rate"]
     t0 = time.time()
-    trials, n_trials = write_train_corpus(tmp, sr)
+    trials, n_trials = write_train_corpus(tmp, sr, n_spk=n_spk)
     log(f"[{tag}] {n_trials // 2} speakers' WAVs written in "
         f"{time.time() - t0:.1f} s")
-    cfg = {**h, "number_of_epochs": 2,
+    cfg = {**h, "number_of_epochs": epochs,
            "save_folder": str(tmp / "save"), "data_folder": str(tmp / "data"),
            "train_annotation": str(tmp / "meta" / "train.csv"),
            "evaluation_file": str(trials),
@@ -2135,21 +2159,22 @@ def path_e4(tmp, card: str, h: dict, tag: str = "E4",
     for line in text.splitlines():
         log(f"[{tag} train] {line}")
     run = tmp / "save" / h["model"]["name"] / h["criterion"]["name"]
-    epochs = [float(x) for x in re.findall(r"utt/s, ([0-9.]+) s\)", text)]
+    epoch_s = [float(x) for x in re.findall(r"utt/s, ([0-9.]+) s\)", text)]
     missing = [n for n in ("model/best_state.msgpack",
                            "model/last_state.msgpack", "result/scores.txt")
                if not (run / n).exists()]
     scores = ((run / "result" / "scores.txt").read_text().splitlines()
               if not missing else [])
-    if rc != 0 or missing or len(scores) != 2 or len(epochs) != 2:
+    if rc != 0 or missing or len(scores) != len(epoch_s) \
+            or len(epoch_s) != epochs:
         fail(f"path {tag}: --do_train rc {rc}, missing {missing}, scores "
-             f"{scores}, epochs {epochs}")
+             f"{scores}, epochs {epoch_s}")
     steps = int(json.loads((run / "model" / "model_state_log.json")
                            .read_text())["step"])
     opts = h["dataloader_options"]
-    log(f"[{tag}] --do_train: 2 epochs, {steps} steps of "
+    log(f"[{tag}] --do_train: {epochs} epochs, {steps} steps of "
         f"{opts['batch_size'] * opts['nPerSpeaker']} crops, "
-        f"{train_s:.1f} s in all, per epoch {epochs} s ({card}); "
+        f"{train_s:.1f} s in all, per epoch {epoch_s} s ({card}); "
         f"launches {train_counts}")
     if train_counts["mel_frontend"] != steps:
         fail(f"path {tag}: {steps} train steps but K1 launched "
@@ -2172,7 +2197,7 @@ def path_e4(tmp, card: str, h: dict, tag: str = "E4",
     log(f"[{tag}] --do_infer --eval of best_state: {n_trials} trials, "
         f"launches {eval_counts}")
     return {"counts": {k: train_counts[k] + eval_counts[k]
-                       for k in KERNELS}, "epochs_s": epochs, "steps": steps}
+                       for k in KERNELS}, "epochs_s": epoch_s, "steps": steps}
 
 
 def path_e(tmp, card: str, h: dict = RAW3_TRAIN_HPARAMS) -> dict:
@@ -3155,6 +3180,366 @@ def path_h(tmp, card: str) -> dict:
 
 
 # ----------------------------------------------------------------------
+# path I: the Conformer family, served and trained
+# ----------------------------------------------------------------------
+# the keys of yaml/model_plot.yaml (Conformer + AAmSoftmaxAP over 5,994 +
+# AdaBelief, 16 kHz, 2 s crops; tests/test_torch_port_conformer_cli.py
+# holds them against the file). ECAPA_Conformer, which no yaml names,
+# takes them with its builder's defaults
+CONFORMER_HPARAMS = {
+    "seed": 20220805,
+    "audio_spec": {"sample_rate": 16000, "channels": 1, "sentence_len": 2.0,
+                   "win_len": 0.025, "hop_len": 0.01},
+    "n_mfcc": 80, "n_mels": 80, "features": "melspectrogram",
+    "model": {"name": "Conformer", "feature_type": "melspectrogram",
+              "nOut": 512},
+    "num_eval": 20,
+    "number_of_epochs": 500, "batch_size": 64, "lr": 0.003,
+    "base_lr": 1e-8, "max_lr": 0.003, "step_size": 10, "shuffle": False,
+    "random_chunk": True, "nClasses": 5994,
+    "dataloader_options": {"batch_size": 64, "shuffle": False,
+                           "num_workers": 8, "max_seg_per_spk": 1000,
+                           "nPerSpeaker": 2, "split_ratio": -1},
+    "criterion": {"name": "AAmSoftmaxAP", "margin": 0.2, "scale": 30},
+    "optimizer": {"name": "AdaBelief", "weight_decay": 0.00002,
+                  "lr_decay": 0.95},
+    "callbacks": {"name": "cosine_annealinglr_pt", "base_lr": 1e-8,
+                  "max_lr": 0.003},
+    "early_stopping": False, "es_patience": 15, "augment": False,
+    "save_model_last": True, "ckpt_interval_minutes": -1,
+    "test_interval": -1,
+}
+ECAPA_CONFORMER_HPARAMS = {**CONFORMER_HPARAMS, "model": {
+    "name": "ECAPA_Conformer", "feature_type": "melspectrogram",
+    "nOut": 192}}
+# K3's Dense route on path I at the serving batch (160 crops of 2 s: 201
+# frames, 49 after the subsampling, so M = 160 x 49 = 7,840 rows): x as
+# the wrapper gets it, N, launches per forward, the layer
+# (tests/test_torch_port_conformer_cli.py holds (K, N) and the counts
+# against the models)
+CONFORMER_DENSE_SHAPES = [
+    ((7840, 1024), 256, 12, "Conformer _FeedForward_0/1 Dense_1"),
+    ((7840, 4864), 256, 1, "Conformer subsampling Dense_0"),
+    ((160, 512), 512, 1, "Conformer Dense_0"),
+    ((7840, 576), 144, 32, "ECAPA_Conformer _FeedForward_0/1 Dense_1"),
+    ((7840, 55152), 144, 1, "ECAPA_Conformer subsampling Dense_0"),
+]
+# gradients zero by construction (a softmax ignores a shift of all its
+# inputs: the attention's key bias, the pooling convs' biases and the
+# BatchNorm bias before the Conformer's pooling conv, AngularProto's
+# logit bias): update cosines leave them out
+I_ZERO_GRAD = ("RelativeMultiHeadAttention_0.Dense_1.bias",
+               "backbone.Conv_1.bias", "backbone.BatchNorm_0.bias",
+               "AttentiveStatisticsPooling_0.Conv1d_0.Conv_0.bias",
+               "AngularProto_0.b")
+
+
+def dropout_off(model) -> None:
+    """Every dropout of ``model`` at rate 0 (for card-against-CPU checks:
+    the two devices' random streams differ)."""
+    from speakerverification_tpu_torch.models.conformer import Dropout
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+
+
+def peak_gib(fn) -> float:
+    """Peak allocated device memory (GiB) over one call of ``fn``."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _conformer_module(key: str) -> str:
+    """A parameter's group for the gradient check: each conformer block,
+    the subsampling, the pooling and head, the loss head."""
+    parts = key.split(".")
+    if parts[0] == "loss":
+        return "loss"
+    if parts[1] == "ConformerEncoder_0":
+        return (".".join(parts[:3]) if parts[2].startswith("ConformerBlock_")
+                else "backbone.ConformerEncoder_0 subsampling")
+    return "backbone pooling and head"
+
+
+def path_i1(card: str) -> dict:
+    """Conformer (model_plot.yaml) over HTTP at 8 x 20 crops of 2 s, its
+    throughput, peak memory and profile."""
+    import numpy as np
+    h = CONFORMER_HPARAMS
+    i1 = serve_over_http("I1", h, bn_seed=30, device=E_DEVICE)
+    engine = i1["engine"]
+    waves = (0.1 * np.random.default_rng(31).normal(
+        0, 1, (i1["n_crops"], i1["samples"]))).astype(np.float32)
+    throughput("I1 Conformer", engine, waves, h["num_eval"], card)
+    peak = peak_gib(lambda: engine.embed_fn(waves))
+    log(f"[I1] peak memory of a served batch ({len(waves)} crops): "
+        f"{peak:.2f} GiB ({card})")
+    profile("I1", engine, waves)
+    return {**i1, "waves": waves, "peak_gib": peak}
+
+
+def path_i2(i1: dict, card: str) -> dict:
+    """The same model with ``quant: int8`` through the engine (calibrated
+    on the batch): 14 K3 Dense-route launches per forward at the table's
+    shapes, held against the plain int8 path on the CPU (same scales) and
+    the float path on the card."""
+    import copy
+
+    import numpy as np
+    import torch
+    from speakerverification_tpu_torch.inference import InferenceEngine
+    from speakerverification_tpu_torch.quant import make_int8_embed_fn
+    h = {**CONFORMER_HPARAMS, "quant": "int8"}
+    waves = i1["waves"]
+    engine = InferenceEngine(h, device=E_DEVICE)
+    randomize_bn_(engine.model, seed=30)
+    engine.embed_fn(waves)                       # calibrates on this batch
+    torch.cuda.synchronize()
+    reset_counts()
+    with quant_shape_log() as shapes:
+        got = engine.embed_fn(waves).cpu().numpy()
+        torch.cuda.synchronize()
+    counts = read_counts()
+    table = [r for r in CONFORMER_DENSE_SHAPES
+             if r[3].startswith("Conformer ")]
+    want = {"mel_frontend": 1, "res2net_cascade": 0,
+            "quant_matmul": sum(r[2] for r in table)}
+    log(f"[I2] Conformer int8, {len(engine.act_scales)} calibrated layers: "
+        f"launches per forward {counts}")
+    if counts != want or not log_quant_shapes(shapes, 1, table, "I2"):
+        fail(f"path I2: expected {want} at the table's shapes, got {counts}")
+    n_cpu = 2 * h["num_eval"]
+    cpu = make_int8_embed_fn(copy.deepcopy(engine.model).cpu(),
+                             act_scales=engine.act_scales)
+    cos = cosines(got[:n_cpu], cpu(torch.from_numpy(waves[:n_cpu])).numpy())
+    ok = bool(np.isfinite(got).all()) and cos.min() >= 0.999
+    log(f"[I2] int8 on the card vs the plain int8 path on the CPU, same "
+        f"scales, {n_cpu} crops: min cos {cos.min():.7f} (need >= 0.999) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("path I2: int8 embeddings on the card disagree with the CPU")
+    cos = cosines(got, i1["engine"].embed_fn(waves).cpu().numpy())
+    ok = cos.min() >= 0.99
+    log(f"[I2] int8 vs float embeddings on the card, {len(waves)} crops: "
+        f"min cos {cos.min():.5f}, mean {cos.mean():.5f} (need >= 0.99) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("path I2: int8 embeddings stray from the float path")
+    throughput("I2 Conformer int8", engine, waves, h["num_eval"], card)
+    profile("I2", engine, waves)
+    return {"counts": counts}
+
+
+def path_i3(dev, gen) -> list:
+    """K3's Dense route at every Conformer and ECAPA_Conformer shape, fp32
+    and bf16, bit for bit against its plain version, timed beside the
+    plain version, the ``_int_mm`` chain, the float layer and the bound;
+    then each model's sum per forward."""
+    import torch
+    rows = [check_quant_shape(dev, gen, x_shape, N, dtype, per_fwd, layer)
+            for x_shape, N, per_fwd, layer in CONFORMER_DENSE_SHAPES
+            for dtype in (torch.float32, torch.bfloat16)]
+    for model in ("Conformer", "ECAPA_Conformer"):
+        for dt in ("float32", "bfloat16"):
+            mine = [r for r, (_, _, _, layer) in zip(
+                rows, [s for s in CONFORMER_DENSE_SHAPES for _ in (0, 1)])
+                if layer.startswith(model + " ") and r["shape"].endswith(dt)]
+
+            def total(key):
+                return sum((r[key] or 0.0) * r["launches_per_forward"]
+                           for r in mine)
+            log(f"[I3 {model} per forward {dt}] K3 {total('ms'):.3f} ms, "
+                f"bound {total('bound_ms'):.3f} ms, _int_mm chain "
+                f"{total('library_ms'):.3f} ms, float layers "
+                f"{total('float_ms'):.3f} ms, plain {total('plain_ms'):.3f} ms "
+                f"over {sum(r['launches_per_forward'] for r in mine)} "
+                f"launches")
+    return rows
+
+
+def module_cosines(got: dict, want: dict) -> dict:
+    """Cosine of two gradient trees by :func:`_conformer_module` group,
+    leaving out ``I_ZERO_GRAD``."""
+    out = {}
+    for group in sorted({_conformer_module(k) for k in want}):
+        keys = [k for k in want if _conformer_module(k) == group]
+        zeros = {k: 0 * want[k].detach().cpu() for k in keys}
+        cos, worst, name = update_cosine({k: got[k] for k in keys}, zeros,
+                                         {k: want[k] for k in keys},
+                                         I_ZERO_GRAD)
+        out[group] = {"cos": cos, "lowest": worst, "lowest_at": name}
+    return out
+
+
+def path_i4(card: str) -> dict:
+    """The Conformer train step (model_plot.yaml: 64 x 2 crops of 2 s,
+    AAmSoftmaxAP over 5,994, AdaBelief): the gradient by module and three
+    fp32 steps on the card against the CPU from one state, dropout off
+    (4 speakers x 2 crops); then the full step with dropout drawn from a
+    generator on the card, timed in fp32 and bf16; learning on one
+    batch."""
+    import torch
+    h = dict(CONFORMER_HPARAMS)
+    lr = h["lr"]
+    cpu, cpu_step = train_state(h, "cpu")
+    card_state, card_step = train_state(h, E_DEVICE)
+    for st in (cpu, card_state):
+        dropout_off(st.model)
+    copy_state(cpu, card_state)
+    wave, label = seeded_batch(40, 4, 2, h)
+    counts = dict.fromkeys(KERNELS, 0)
+
+    def add_counts():
+        for k, v in read_counts().items():
+            counts[k] += v
+    reset_counts()
+    g_card = loss_grads(card_state, torch.from_numpy(wave).to(E_DEVICE),
+                        torch.from_numpy(label).to(E_DEVICE))
+    add_counts()
+    g_cpu = loss_grads(cpu, torch.from_numpy(wave), torch.from_numpy(label))
+    grad = module_cosines(g_card, g_cpu)
+    ok = all(v["cos"] >= 0.999 for v in grad.values())
+    log(f"[I4 gradient] card vs CPU at the initial state, dropout off, by "
+        f"module (bar 0.999): " + json.dumps(grad) + (" ok" if ok
+                                                       else " FAIL"))
+    if not ok:
+        fail("path I4: the card's gradient disagrees with the CPU's")
+    rows = []
+    for i in range(3):
+        wave, label = seeded_batch(41 + i, 4, 2, h)
+        copy_state(cpu, card_state)
+        before = {k: p.detach().clone() for k, p in cpu.params.items()}
+        reset_counts()
+        card_state, mc = card_step(card_state,
+                                   torch.from_numpy(wave).to(E_DEVICE),
+                                   torch.from_numpy(label).to(E_DEVICE), lr)
+        torch.cuda.synchronize()
+        add_counts()
+        cpu, mp = cpu_step(cpu, torch.from_numpy(wave),
+                           torch.from_numpy(label), lr)
+        lc, lp = float(mc["loss"]), float(mp["loss"])
+        stats = max(float((card_state.batch_stats[k].cpu() - s).abs().max()
+                          / s.abs().max()) for k, s in cpu.batch_stats.items())
+        cos, worst, name = update_cosine(card_state.params, before,
+                                         cpu.params, I_ZERO_GRAD)
+        row = {"loss_card": lc, "loss_cpu": lp,
+               "loss_rel": abs(lc - lp) / abs(lp), "stats_rel": stats,
+               "update_cos": cos, "worst_tensor_cos": worst,
+               "worst_tensor": name}
+        log(f"[I4 step {i}] " + json.dumps(row))
+        rows.append(row)
+    ok = (all(r["loss_rel"] <= 2e-3 and r["stats_rel"] <= 2e-2
+              and r["update_cos"] >= 0.9 for r in rows)
+          and counts == {"mel_frontend": 4, "res2net_cascade": 0,
+                         "quant_matmul": 0})
+    log(f"[I4] card vs CPU over 3 steps, dropout off: max loss rel "
+        f"{max(r['loss_rel'] for r in rows):.3e} (bar 2e-3), max stats rel "
+        f"{max(r['stats_rel'] for r in rows):.3e} (bar 2e-2), min update cos "
+        f"{min(r['update_cos'] for r in rows):.6f} (bar 0.9); launches "
+        f"(1 gradient + 3 steps) {counts} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("path I4: the card's train steps disagree with the CPU's")
+    del cpu, card_state
+    gen = torch.Generator(device=E_DEVICE)
+    reset_counts()
+    gen.manual_seed(1)
+    fp32 = time_steps("fp32 dropout", h, card, tag="I4", step_args=(gen,))
+    gen.manual_seed(2)
+    bf16 = time_steps("bf16 mixedprec dropout", {**h, "mixedprec": True},
+                      card, tag="I4", step_args=(gen,))
+    gen.manual_seed(3)
+    check_learning("fp32 dropout", h, tag="I4", step_args=(gen,))
+    timed = read_counts()
+    # 13 timed steps each (and the profiled ones), 20 learning steps: K1
+    # once a step
+    if timed["mel_frontend"] < 2 * (10 + 3) + 20:
+        fail(f"path I4: K1 launched {timed['mel_frontend']} times in the "
+             f"timed steps")
+    return {"counts": {k: counts[k] + timed[k] for k in KERNELS},
+            "fp32": fp32, "bf16": bf16}
+
+
+def path_i5(card: str) -> dict:
+    """ECAPA_Conformer at its builder's defaults: one served batch (8 x 20
+    crops of 2 s) on the card, its peak memory, 16 crops of it against the
+    CPU; one train step (64 x 2 crops) with its peak memory."""
+    import numpy as np
+    import torch
+    from speakerverification_tpu_torch.inference import InferenceEngine
+    h = ECAPA_CONFORMER_HPARAMS
+    engine = InferenceEngine(h, device=E_DEVICE)
+    randomize_bn_(engine.model, seed=32)
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    n = BATCH_UTTS * h["num_eval"]
+    samples = int(h["audio_spec"]["sentence_len"]
+                  * h["audio_spec"]["sample_rate"])
+    waves = (0.1 * np.random.default_rng(33).normal(0, 1, (n, samples))
+             ).astype(np.float32)
+    engine.embed_fn(waves)                               # warm-up
+    reset_counts()
+    peak = peak_gib(lambda: engine.embed_fn(waves))
+    counts = read_counts()
+    want = {"mel_frontend": 1, "res2net_cascade": 0, "quant_matmul": 0}
+    log(f"[I5] ECAPA_Conformer on {engine.device}: {n_params / 1e6:.2f} M "
+        f"params; a served batch of {n} crops: peak memory {peak:.2f} GiB, "
+        f"launches {counts} ({card})")
+    if counts != want:
+        fail(f"path I5: expected {want}, got {counts}")
+    throughput("I5 ECAPA_Conformer", engine, waves, h["num_eval"], card)
+    # cuDNN's untimed pick for the serving forward's Conv2d (a train
+    # step once took a ~66 GiB FFT plan): its kernels by name
+    profile("I5", engine, waves)
+    compare_with_cpu(engine, waves[:16], "I5")
+    del engine
+    gen = torch.Generator(device=E_DEVICE).manual_seed(4)
+    reset_counts()
+    step = time_steps("fp32 dropout", h, card, tag="I5", steps=2, warmup=1,
+                      step_args=(gen,))
+    train = read_counts()
+    return {"counts": {k: counts[k] + train[k] for k in KERNELS},
+            "serve_peak_gib": peak, "step": step}
+
+
+def path_i(tmp, card: str, dev, gen) -> dict:
+    """The Conformer family (I1-I6): Conformer served over HTTP (I1) and
+    in int8 (I2), K3's Dense route at both models' shapes (I3), the
+    Conformer train step (I4), ECAPA_Conformer served and stepped (I5),
+    ``--do_train`` then ``--do_infer --eval`` through the CLI (I6)."""
+    walls = {}
+
+    def timed_phase(phase, fn, *args, **kwargs):
+        t0 = time.time()
+        out = fn(*args, **kwargs)
+        walls[phase] = round(time.time() - t0, 1)
+        return out
+
+    i1 = timed_phase("I1", path_i1, card)
+    i2 = timed_phase("I2", path_i2, i1, card)
+    del i1["engine"]
+    k3 = timed_phase("I3", path_i3, dev, gen)
+    i4 = timed_phase("I4", path_i4, card)
+    i5 = timed_phase("I5", path_i5, card)
+    # 160 speakers: a few steps of 64 distinct speakers x 2 crops
+    i6 = timed_phase("I6", path_e4, tmp, card, CONFORMER_HPARAMS, tag="I6",
+                     epochs=1, n_spk=160)
+    counts = {k: i1["counts"][k] + i2["counts"][k] + i4["counts"][k]
+              + i5["counts"][k] + i6["counts"][k] for k in KERNELS}
+    log(f"[I] launches over I1-I6: {counts}; wall by phase (s) {walls}, "
+        f"{sum(walls.values()):.1f} s in all")
+    int8 = sum(r[2] for r in CONFORMER_DENSE_SHAPES
+               if r[3].startswith("Conformer "))
+    if counts["res2net_cascade"] or counts["quant_matmul"] != int8 \
+            or counts["mel_frontend"] < 1:
+        fail(f"path I: unexpected launches {counts}")
+    return {"counts": counts, "k3": k3, "fp32": i4["fp32"],
+            "bf16": i4["bf16"], "i5": i5, "epochs_s": i6["epochs_s"]}
+
+
+# ----------------------------------------------------------------------
 # F2's fp32 convolution gradient: remedies side by side (--f2-conv)
 # ----------------------------------------------------------------------
 # each in a process of its own: cuDNN's algorithm cache, its workspace
@@ -3267,6 +3652,31 @@ def forwards() -> None:
         del engine
 
 
+def conformer() -> None:
+    """Path I alone, after the kernels' build: the quick check of the
+    Conformer family."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_kernels()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tmp = Path(tempfile.mkdtemp(prefix="svtorch_conformer_"))
+    try:
+        out = path_i(tmp, card, dev, gen)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[I] passed in {time.time() - T_START:.1f} s; launches "
+        f"{out['counts']} ({card})")
+
+
 def data_path() -> None:
     """Path H alone, path G's corpora written first, after the kernels'
     build: the quick check of the data path."""
@@ -3360,20 +3770,33 @@ def main() -> None:
         h = path_h(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    tmp = Path(tempfile.mkdtemp(prefix="svtorch_conformer_"))
+    try:
+        i = path_i(tmp, card, dev, gen)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     paths = {"A": a["counts"], "B": b["counts"], "C": c["counts"],
              "D": d["counts"], "E": e["counts"], "F": f["counts"],
-             "G": g["counts"], "H": h["counts"]}
+             "G": g["counts"], "H": h["counts"], "I": i["counts"]}
     by_path = {k: {p: counts[k] for p, counts in paths.items()}
                for k in KERNELS}
 
     # each kernel's row at its main paths' shapes (K1: path A's and path
-    # F's serving and train shapes, paths E's and G's train steps)
+    # F's serving and train shapes, which I1 and I5 serve at, paths E's,
+    # G's and I's train steps; K3: path C's hot conv shape and the
+    # Conformer's Dense shape with the most time per forward)
+    conformer_k3 = [r for r, (_, _, _, layer) in zip(
+        i["k3"], [s for s in CONFORMER_DENSE_SHAPES for _ in (0, 1)])
+        if layer.startswith("Conformer ") and r["shape"].endswith("float32")]
+    hot_dense = max(conformer_k3,
+                    key=lambda r: r["ms"] * r["launches_per_forward"])
     main_shapes = {"mel_frontend": ("raw3_ecapa 8k", "raw_ecapa 16k",
                                     "raw_ecapa 16k train",
                                     "raw3_ecapa 8k train",
-                                    "ecapa_tdnn 16k train"),
+                                    "ecapa_tdnn 16k train",
+                                    "model_plot 16k train"),
                    "res2net_cascade": ("H128 B80 d2 float32",),
-                   "quant_matmul": (HOT_QUANT,)}
+                   "quant_matmul": (HOT_QUANT, hot_dense["shape"])}
     meta = {
         "mel_frontend": ("speakerverification_tpu_torch/csrc/mel_frontend.cu",
                          "speakerverification_tpu/ops/pallas_frontend.py:68"),
@@ -3384,7 +3807,7 @@ def main() -> None:
                          "speakerverification_tpu/ops/pallas_quant.py:42"),
     }
     kernels = []
-    for r in k1 + k2 + k3:
+    for r in k1 + k2 + k3 + i["k3"]:
         if r["shape"] not in main_shapes[r["name"]]:
             continue
         src, repl = meta[r["name"]]
@@ -3419,5 +3842,7 @@ if __name__ == "__main__":
         forwards()
     elif sys.argv[1:2] == ["--data-path"]:
         data_path()
+    elif sys.argv[1:2] == ["--conformer"]:
+        conformer()
     else:
         main()

@@ -1,9 +1,10 @@
 """Build the port's objects from the YAML schema (port of ``builder.py``).
 
 Frontend config, compute dtype, the ``SpeakerEncoder`` for a registered
-model (``ECAPA_TDNN``, the ``Raw*_ECAPA*`` hybrids, the RawNet2 family) with
-its loss head (``criterion``), the optimizer (``optimizer``) and the
-learning-rate schedule (``callbacks``). ``frontend_backend`` and
+model (``ECAPA_TDNN``, the ``Raw*_ECAPA*`` hybrids, the RawNet2 family,
+``Conformer`` and ``ECAPA_Conformer``) with its loss head
+(``criterion``), the optimizer (``optimizer``) and the learning-rate
+schedule (``callbacks``). ``frontend_backend`` and
 ``model.conv_backend`` take ``'auto' | 'xla' | 'pallas'``: ``'pallas'``
 selects the port's hand-written kernel, ``'xla'`` the plain PyTorch
 path, ``'auto'`` the kernel on CUDA. SpecAugment (``ops/specaugment.py``)
@@ -58,6 +59,7 @@ def frontend_from_hparams(hparams: Mapping,
 def build_model(name: str, **kwargs):
     # importing the model modules fills the registry
     from speakerverification_tpu_torch.models import (  # noqa: F401
+        conformer,
         ecapa_tdnn,
         hybrids,
         rawnet2,

@@ -7,7 +7,9 @@ grouped per speaker (``[B, nPerSpeaker, D]``) and the loss head returns
 its parameters under ``params["loss"]``. With ``spec_augment`` set, a
 training forward runs SpecAugment on the frontend's fp32 features before
 the cast, its numbers from the ``rng`` that ``forward`` is given; a
-hybrid backbone featurizes in-model and is handed ``rng`` for its own.
+hybrid backbone featurizes in-model and is handed ``rng`` for its own,
+and a backbone with dropout (``draws_dropout``, the Conformer family)
+is handed it for its masks.
 """
 
 from __future__ import annotations
@@ -64,6 +66,8 @@ class SpeakerEncoder(nn.Module):
             feats = spec_augment(feats, self.spec_augment, rng)
         if self.compute_dtype is not None:
             feats = feats.to(self.compute_dtype)
+        if getattr(self.backbone, "draws_dropout", False):
+            return self.backbone(feats, rng=rng)
         return self.backbone(feats)
 
     def forward(self, wave: torch.Tensor,
@@ -71,7 +75,7 @@ class SpeakerEncoder(nn.Module):
         """``wave``: ``[B, T]`` or ``[B, nPerSpeaker, T]`` audio. Returns
         the embeddings, or ``(loss, prec1)`` when ``label`` is given.
         ``rng`` (a ``torch.Generator`` on the wave's device, or a
-        ``SpecAugmentDraw``) feeds SpecAugment in training."""
+        ``SpecAugmentDraw``) feeds SpecAugment and dropout in training."""
         if label is not None and self.loss is None:
             raise ValueError("SpeakerEncoder built without a loss head")
         grouped = wave.dim() == 3

@@ -46,13 +46,14 @@ __all__ = [
 
 
 def promoted(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """``module(x)`` for a conv or linear layer; where x and the weights
-    differ in dtype (bf16 weights after an fp32 reduction), both are
-    promoted to the wider one first, as jnp promotes a bf16 kernel
+    """``module(x)`` for a conv (1-D or 2-D) or linear layer; where x and
+    the weights differ in dtype (bf16 weights after an fp32 reduction),
+    both are promoted to the wider one first, as jnp promotes a bf16 kernel
     against an fp32 input. The module is still called (its hooks run,
     as int8 calibration's do)."""
     w = getattr(module, "weight", None)
-    if not isinstance(module, (nn.Conv1d, nn.Linear)) or w.dtype == x.dtype:
+    if not isinstance(module, (nn.Conv1d, nn.Conv2d, nn.Linear)) \
+            or w.dtype == x.dtype:
         return module(x)
     dt = torch.promote_types(x.dtype, w.dtype)
     promoted_weights = {"weight": w.to(dt)}
@@ -334,7 +335,11 @@ class AttentiveStatisticsPooling(nn.Module):
             w = conv.weight[:, :, 0].to(mean.dtype)         # [A, 3C]
             ctx = (mean @ w[:, C:2 * C].T + std @ w[:, 2 * C:].T
                    + conv.bias.to(mean.dtype))
-            h = F.conv1d(x, conv.weight[:, :C]) + ctx[:, :, None]
+            # x's rows in the promoted type of x and the weights, as flax
+            # promotes (a bf16 conv over an fp32 input is fp32)
+            dt = torch.promote_types(x.dtype, conv.weight.dtype)
+            h = F.conv1d(x.to(dt), conv.weight[:, :C].to(dt)) \
+                + ctx[:, :, None]
             attn = blk.BatchNorm1d_0(torch.relu(h))
         else:
             attn = blk(x)

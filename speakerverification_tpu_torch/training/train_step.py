@@ -13,8 +13,10 @@ With ``augment_fn(wave, rng, *aug_args) -> wave`` set (on-device
 augmentation: ``ops/device_augment.py``, ``ops/timeaugment.py``), the
 whole batch is augmented first, in fp32 and without gradient, before any
 microbatch split; the noise and RIR banks ride in ``aug_args``, so the
-trainer can swap them per epoch. A model with SpecAugment draws from the
-same generator in each microbatch's forward.
+trainer can swap them per epoch. A model with SpecAugment or dropout
+(the Conformer family) draws from the same generator in each
+microbatch's forward, and raises when the step is given none (the JAX
+step always passes a ``dropout`` key).
 
 ``compute_dtype=torch.bfloat16`` runs the forward and backward through
 bf16 copies of the parameters (``torch.func.functional_call``), so the

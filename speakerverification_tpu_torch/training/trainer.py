@@ -17,9 +17,10 @@ from the corpus each epoch after the first, from
 ``numpy.random.default_rng(seed * 7919 + epoch)``; the first build is
 unseeded, as in the JAX trainer). ``device_time_augment`` (``true`` for
 ``'np'``, or ``'np'`` / ``'torch'``) adds ``ops/timeaugment.py``'s chain
-after it. The step's generator is seeded from ``seed * 1000 + epoch``
-at each epoch's start; its state is not checkpointed (the JAX trainer
-keeps no rng state either).
+after it. The step's generator (which also draws SpecAugment's masks
+and dropout's) is seeded from ``seed * 1000 + epoch`` at each epoch's
+start; its state is not checkpointed (the JAX trainer keeps no rng
+state either).
 
 The model runs on CUDA unless the caller asks for the CPU. Not ported,
 and refused by name: ``distributed``/``data_parallel``,

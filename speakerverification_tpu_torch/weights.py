@@ -5,12 +5,16 @@ arrays) into a ``state_dict`` of the port. The port's modules carry the
 flax scope names, so a key is the flax path joined with dots; only the
 leaves change layout:
 
-* conv ``kernel [k, in, out]`` → ``weight [out, in, k]``;
+* conv ``kernel [k, in, out]`` → ``weight [out, in, k]``, and a Conv2d
+  ``kernel [kh, kw, in, out]`` → ``weight [out, in, kh, kw]``;
 * Dense ``kernel [in, out]`` → Linear ``weight [out, in]``;
 * BatchNorm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` →
-  ``weight``/``bias``/``running_mean``/``running_var``;
+  ``weight``/``bias``/``running_mean``/``running_var``; a LayerNorm
+  (a ``LayerNorm_*`` scope, no statistics) ``scale``/``bias`` →
+  ``weight``/``bias``;
 * ``input_norm_*``, ``inorm_*``, ``low_hz``/``band_hz``, AFMS
-  ``alpha`` and ``sap_v`` keep their names and layouts, and so do, only
+  ``alpha``, ``sap_v`` and the relative attention's ``u_bias``/
+  ``v_bias`` keep their names and layouts, and so do, only
   under the scopes that own them, a ``SampleLayerNorm_*``'s
   ``gamma``/``beta``, the metric heads' 0-d ``w``/``b`` and the margin
   heads' ``W``/``weight`` (under ``loss``, or a head of it:
@@ -46,7 +50,10 @@ __all__ = ["params_from_jax", "params_to_jax", "init_weights_", "cast_copy",
            "act_scales_from_jax"]
 
 _SAME_NAME = {"alpha", "low_hz", "band_hz", "inorm_scale", "inorm_bias",
-              "input_norm_scale", "input_norm_bias", "W", "sap_v"}
+              "input_norm_scale", "input_norm_bias", "W", "sap_v", "u_bias",
+              "v_bias"}
+# flax's LayerNorm scopes: ``scale``/``bias`` and no statistics
+_LAYER_NORM = re.compile(r"^(.*\.)?LayerNorm_\d+$")
 # the margin heads' own matrices (AmSoftmax/ARmSoftmax ``W [nOut,
 # nClasses]``, AAmSoftmax ``weight [nClasses, nOut]``) at the encoder's
 # ``loss`` scope or one margin head below it (the summed heads'): stored
@@ -97,12 +104,16 @@ def params_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None,
     for path, arr in _flatten(params).items():
         scope, name = ".".join(path[:-1]), path[-1]
         key = f"{scope}.{{}}" if scope else "{}"
-        if name == "kernel" and arr.ndim == 3:
+        if name == "kernel" and arr.ndim == 4:
+            state[key.format("weight")] = arr.transpose(3, 2, 0, 1)
+        elif name == "kernel" and arr.ndim == 3:
             state[key.format("weight")] = arr.transpose(2, 1, 0)
         elif name == "kernel" and arr.ndim == 2:
             state[key.format("weight")] = arr.T
         elif name == "bias":
             state[key.format("bias")] = arr
+        elif name == "scale" and _LAYER_NORM.match(scope):
+            state[key.format("weight")] = arr
         elif name == "scale":
             state[key.format("weight")] = arr
             bn_scopes.add(scope)
@@ -154,8 +165,10 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> tuple[dict, dict]:
     """A port ``state_dict`` as flax ``(params, batch_stats)`` numpy
     trees, the inverse of :func:`params_from_jax`: a BatchNorm (a scope
     with ``running_mean``) gives ``scale``/``bias`` and ``mean``/``var``,
-    a 3-D ``weight`` a conv ``kernel [k, in, out]``, a 2-D one a Dense
-    ``kernel [in, out]``; ``num_batches_tracked`` has no flax leaf."""
+    a LayerNorm's (``LayerNorm_*``) ``weight`` its ``scale``, a 4-D
+    ``weight`` a Conv2d ``kernel [kh, kw, in, out]``, a 3-D one a conv
+    ``kernel [k, in, out]``, a 2-D one a Dense ``kernel [in, out]``;
+    ``num_batches_tracked`` has no flax leaf."""
     params: dict = {}
     stats: dict = {}
     for key, t in state.items():
@@ -168,8 +181,11 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> tuple[dict, dict]:
             _nest(params, key, arr.copy())
         elif bn and name in ("running_mean", "running_var"):
             _nest(stats, f"{scope}.{name[len('running_'):]}", arr.copy())
-        elif bn and name == "weight":
+        elif name == "weight" and (bn or _LAYER_NORM.match(scope)):
             _nest(params, f"{scope}.scale", arr.copy())
+        elif name == "weight" and arr.ndim == 4:
+            _nest(params, f"{scope}.kernel",
+                  np.ascontiguousarray(arr.transpose(2, 3, 1, 0)))
         elif name == "weight" and arr.ndim == 3:
             _nest(params, f"{scope}.kernel",
                   np.ascontiguousarray(arr.transpose(2, 1, 0)))
@@ -194,16 +210,19 @@ def _truncated_normal_(w: torch.Tensor, std: float,
 @torch.no_grad()
 def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw ``module``'s weights from ``generator`` (a CPU generator) as
-    flax initializes the JAX modules: conv and Dense kernels
-    ``lecun_normal`` (a truncated normal of variance 1/fan_in), biases
-    zero, BatchNorm scale 1 and bias 0 with running mean 0 and variance
-    1, the loss heads' matrices (``xavier_normal_params``)
-    ``xavier_normal``, a GRU's recurrent kernels (``orthogonal_params``)
+    flax initializes the JAX modules: conv (1-D, depthwise, 2-D) and
+    Dense kernels ``lecun_normal`` (a truncated normal of variance
+    1/fan_in, fan_in the taps times the in-channels of one group),
+    biases zero, BatchNorm scale 1 and bias 0 with running mean 0 and
+    variance 1, LayerNorm scale 1 and bias 0, the loss heads' matrices
+    (``xavier_normal_params``) ``xavier_normal``, the relative
+    attention's ``u_bias``/``v_bias`` (``xavier_uniform_params``)
+    ``xavier_uniform``, a GRU's recurrent kernels (``orthogonal_params``)
     ``orthogonal`` and ``normal_params`` a standard normal; the sinc,
     AFMS, norm and metric-head parameters keep their constructed values,
     which are flax's."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv1d, nn.Linear)):
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
             _truncated_normal_(m.weight, fan_in ** -0.5, generator)
             if m.bias is not None:
@@ -213,11 +232,20 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             m.bias.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
         for name in getattr(m, "xavier_normal_params", ()):
             w = getattr(m, name)
             std = (2.0 / (w.shape[0] + w.shape[1])) ** 0.5
             w.copy_((torch.randn(w.shape, generator=generator) * std)
                     .to(w.device, w.dtype))
+        for name in getattr(m, "xavier_uniform_params", ()):
+            # flax: fan_in the leading axis, fan_out the last
+            w = getattr(m, name)
+            limit = (6.0 / (w.shape[0] + w.shape[1])) ** 0.5
+            w.copy_(((torch.rand(w.shape, generator=generator) * 2 - 1)
+                     * limit).to(w.device, w.dtype))
     # after the loop above, which draws the Linears these name
     for m in module.modules():
         for name in getattr(m, "orthogonal_params", ()):

@@ -3,8 +3,9 @@ widths, with no forward: the model, its loss head, the optimizer and the
 schedule. The port's parameters and BatchNorm statistics, as flax trees
 (``weights.params_to_jax``), have the names and shapes of the JAX
 package's init of the same yaml (traced with ``jax.eval_shape``, nothing
-compiled). ``model_plot.yaml`` names ``Conformer``, which the port does
-not have yet: its build raises ``KeyError`` naming it.
+compiled). ``model_plot.yaml`` (``Conformer``, ported last) has a test
+of its own; its forward is held to JAX's in
+``test_torch_port_conformer.py``.
 """
 
 from pathlib import Path
@@ -32,6 +33,10 @@ def test_every_yaml_but_model_plot_is_listed():
 
 @pytest.mark.parametrize("name", YAMLS)
 def test_port_builds_the_yaml(name):
+    _builds_like_jax(name)
+
+
+def _builds_like_jax(name: str):
     h = read_config(ROOT / "yaml" / name)
     model = TB.encoder_from_hparams(h, with_loss=True)
     tx = TB.optimizer_from_hparams(h)
@@ -53,7 +58,11 @@ def test_port_builds_the_yaml(name):
         assert got == want, (name, col, sorted(set(got) ^ set(want))[:8])
 
 
-def test_model_plot_names_what_is_missing():
-    h = read_config(ROOT / "yaml" / "model_plot.yaml")
-    with pytest.raises(KeyError, match="Conformer"):
-        TB.encoder_from_hparams(h, with_loss=True)
+    return model
+
+
+def test_model_plot_builds_and_matches_jax():
+    model = _builds_like_jax("model_plot.yaml")
+    assert type(model.backbone).__name__ == "ConformerSpeaker"
+    assert type(model.loss).__name__ == "AAmSoftmaxAP"
+    assert model.loss.AAmSoftmax_0.weight.shape == (5994, 512)
