@@ -8,6 +8,8 @@
                                      # timed (to compare two trees)
     python3 chip_smoke.py --data-path  # only path H (the data path)
     python3 chip_smoke.py --conformer  # only path I (the Conformer family)
+    python3 chip_smoke.py --zoo        # only path J (ResNetSE, TitaNet,
+                                       # hybrids2, int8 of RawNet2)
 
 Phases, each of which fails the run:
   1. build the hand-written kernels from ``speakerverification_tpu_torch/csrc``
@@ -83,13 +85,28 @@ Phases, each of which fails the run:
      with dropout off, then the 64 x 2-crop step with dropout timed in
      fp32 and bf16, learning on one batch; I5 ECAPA_Conformer served
      (against the CPU) and one step, with peak memories; I6
-     ``--do_train`` then ``--do_infer --eval`` through the CLI.
+     ``--do_train`` then ``--do_infer --eval`` through the CLI;
+ 13. path J: the ResNetSE and TitaNet families and ``hybrids2``
+     (``yaml/ecapa_tdnn.yaml``'s keys): J1 ResNetSE34V2 behind the HTTP
+     app at 8 x 20 crops of 2 s, timed, its peak memory, profiled, then
+     on ``mfcc`` and ``spectrogram`` features (no K1) against the CPU;
+     J2 ResNetSE34V2 and Raw_ECAPA_conv_asp with ``quant: int8`` (2 and
+     27 K3 launches per forward, at the table's shapes) against the
+     plain int8 path on the CPU and the float path, and K3 at every new
+     shape in fp32 and bf16, bit for bit and timed; J3 TitaNet-L,
+     Tita_ECAPA, Raw_tita and Res_ECAPA at their builders' defaults, one
+     served batch each against the CPU, timed; J4 the 64 x 2-crop
+     AAmSoftmax step of ResNetSE34V2 and TitaNet-L: the gradient by
+     module against the CPU with dropout off, the step timed with
+     dropout in fp32 and bf16; J5 ``--do_train`` then ``--do_infer
+     --eval`` through the CLI.
 Every path is compared with the same model's plain path on the CPU.
 
 The script imports nothing of the JAX package. hparams are built in code
 (they mirror ``yaml/raw3_ecapa.yaml``, ``yaml/ecapa_tdnn.yaml``,
 ``yaml/voxceleb_raw_ecapa.yaml``, the yamls of path F3 and
-``yaml/model_plot.yaml``, which CPU tests check). The last line of standard output is the JSON result.
+``yaml/model_plot.yaml``, which CPU tests check; path J takes
+``ecapa_tdnn.yaml``'s). The last line of standard output is the JSON result.
 """
 
 from __future__ import annotations
@@ -2024,7 +2041,7 @@ def time_steps(label: str, h, card: str, steps: int = 10,
         f"crops/s, peak memory {peak:.2f} GiB, loss {loss:.4f} ({card})")
     busy = profile(f"{tag} {label}", None, None, fn=one, host=True)
     return {"ms": ms, "crops_per_s": n_crops / ms * 1e3, "peak_gib": peak,
-            "wall_ms": wall, "busy": busy}
+            "wall_ms": wall, "busy": busy, "steps": warmup + steps}
 
 
 def check_accum(h) -> None:
@@ -3237,7 +3254,7 @@ I_ZERO_GRAD = ("RelativeMultiHeadAttention_0.Dense_1.bias",
 def dropout_off(model) -> None:
     """Every dropout of ``model`` at rate 0 (for card-against-CPU checks:
     the two devices' random streams differ)."""
-    from speakerverification_tpu_torch.models.conformer import Dropout
+    from speakerverification_tpu_torch.models.layers import Dropout
     for m in model.modules():
         if isinstance(m, Dropout):
             m.rate = 0.0
@@ -3361,16 +3378,18 @@ def path_i3(dev, gen) -> list:
     return rows
 
 
-def module_cosines(got: dict, want: dict) -> dict:
-    """Cosine of two gradient trees by :func:`_conformer_module` group,
-    leaving out ``I_ZERO_GRAD``."""
+def module_cosines(got: dict, want: dict, group_of=None,
+                   zero_grad=I_ZERO_GRAD) -> dict:
+    """Cosine of two gradient trees by ``group_of`` group (default
+    :func:`_conformer_module`), leaving out ``zero_grad``."""
+    group_of = group_of or _conformer_module
     out = {}
-    for group in sorted({_conformer_module(k) for k in want}):
-        keys = [k for k in want if _conformer_module(k) == group]
+    for group in sorted({group_of(k) for k in want}):
+        keys = [k for k in want if group_of(k) == group]
         zeros = {k: 0 * want[k].detach().cpu() for k in keys}
         cos, worst, name = update_cosine({k: got[k] for k in keys}, zeros,
                                          {k: want[k] for k in keys},
-                                         I_ZERO_GRAD)
+                                         zero_grad)
         out[group] = {"cos": cos, "lowest": worst, "lowest_at": name}
     return out
 
@@ -3540,6 +3559,358 @@ def path_i(tmp, card: str, dev, gen) -> dict:
 
 
 # ----------------------------------------------------------------------
+# path J: the ResNetSE and TitaNet families, hybrids2, int8 of the
+# RawNet2 family
+# ----------------------------------------------------------------------
+# yaml/ecapa_tdnn.yaml's keys (16 kHz, 2 s crops, 80 mels, AAmSoftmax over
+# 5,994, AdaBelief) with model.name ResNetSE34V2 at its builder's nOut 256;
+# 20 crops an utterance (160 a served batch, as F1 and I1) and 64 speakers
+# x 2 crops a step (the yaml's 128 halved, as I4's)
+RESNETSE_HPARAMS = {
+    **ECAPA_TRAIN_HPARAMS, "num_eval": 20, "batch_size": 64,
+    "dataloader_options": {**ECAPA_TRAIN_HPARAMS["dataloader_options"],
+                           "batch_size": 64},
+    "model": {"name": "ResNetSE34V2", "feature_type": "melspectrogram",
+              "nOut": 256},
+    "save_model_last": True, "ckpt_interval_minutes": -1,
+    "test_interval": -1,
+}
+# path J3: each model at its builder's defaults (nOut; TitaNet size L)
+# with J1's keys; the hybrids featurize in-model (features: raw)
+ZOO_MODELS = {
+    "TitaNet": {"name": "TitaNet", "feature_type": "melspectrogram",
+                "nOut": 512},
+    "Tita_ECAPA": {"name": "Tita_ECAPA", "feature_type": "raw", "nOut": 512},
+    "Raw_tita": {"name": "Raw_tita", "feature_type": "raw", "nOut": 512},
+    "Res_ECAPA": {"name": "Res_ECAPA", "feature_type": "melspectrogram",
+                  "nOut": 128},
+}
+
+
+def zoo_hparams(name: str) -> dict:
+    model = ZOO_MODELS[name]
+    return {**RESNETSE_HPARAMS, "features": model["feature_type"],
+            "model": model}
+
+
+# K3 at path J's new shapes at the serving batch (160 crops of 2 s at
+# 16 kHz): x as the wrapper gets it, N, launches per forward, the layer
+# (tests/test_torch_port_zoo_cli.py holds them against the models)
+ZOO_QUANT_SHAPES = [
+    ((160, 768, 1185), 256, 1,
+     "Raw_ECAPA_conv_asp RawNetBasicBlock_2/Conv_2 (3-tap)"),
+    ((160, 768, 395), 256, 4,
+     "Raw_ECAPA_conv_asp RawNetBasicBlock_3-4/Conv_0-1 (3-tap)"),
+    ((160, 768, 131), 512, 1,
+     "Raw_ECAPA_conv_asp RawNetBasicBlock_5/Conv_1 (3-tap)"),
+    ((160, 1536, 131), 512, 1,
+     "Raw_ECAPA_conv_asp RawNetBasicBlock_5/Conv_2 (3-tap)"),
+    ((160, 1536, 43), 512, 4,
+     "Raw_ECAPA_conv_asp RawNetBasicBlock_6-7/Conv_0-1 (3-tap)"),
+    ((160, 512), 512, 3, "Raw_ECAPA_conv_asp AFMS Dense_0"),
+    ((160, 512, 14), 128, 1, "Raw_ECAPA_conv_asp raw Conv_1 (attention)"),
+    ((160, 1024), 320, 1, "Raw_ECAPA_conv_asp raw Dense_0"),
+    ((160, 2560, 26), 128, 1, "ResNetSE34V2 Conv_1 (attention)"),
+    ((160, 5120), 256, 1, "ResNetSE34V2 Dense_0"),
+]
+
+
+def crop_samples(h: dict) -> int:
+    """The samples of one crop of ``h``'s ``audio_spec``."""
+    spec = h["audio_spec"]
+    return int(spec["sentence_len"] * spec["sample_rate"])
+
+
+def zoo_quant_table(model: str) -> list:
+    """The K3 shapes of one int8 forward of ``model``: the table's rows,
+    and for Raw_ECAPA_conv_asp its ECAPA branch's (path C's shapes: both
+    ECAPAs see 201 frames)."""
+    rows = [r for r in ZOO_QUANT_SHAPES if r[3].startswith(model + " ")]
+    if model == "Raw_ECAPA_conv_asp":
+        rows += [r for r in QUANT_SHAPES if r[3].startswith("ECAPA ")]
+    return rows
+
+
+def _zoo_module(key: str) -> str:
+    """A parameter's group for the gradient check: the loss head, else
+    the backbone's top-level module (a block, the stem, the pooling)."""
+    parts = key.split(".")
+    return "loss" if parts[0] == "loss" else ".".join(parts[:2])
+
+
+# gradients zero by construction: a shift of the pooling's attention under
+# its softmax over time (ResNetSE's last attention conv and the BN before
+# it, TitaNet's energy Dense), a bias before a train-mode BatchNorm
+# (every TitaNet conv, the depthwise one through its 1x1; the Dense and
+# BN before the output BN)
+J_ZERO_GRAD = {
+    "ResNetSE34V2": ("backbone.Conv_2.bias", "backbone.BatchNorm_1.bias"),
+    "TitaNet": ("backbone.Dense_0.bias", "backbone.Dense_2.bias",
+                "backbone.BatchNorm_0.bias", "Conv_0.bias", "Conv_1.bias"),
+}
+
+
+def path_j1(card: str) -> dict:
+    """ResNetSE34V2 (ecapa_tdnn.yaml's keys) over HTTP at 8 x 20 crops of
+    2 s, its throughput, peak memory and profile; then the same model on
+    ``mfcc`` and ``spectrogram`` features (the plain frontend: K1 is
+    mel-only), 16 crops against the CPU and a timed forward each."""
+    import numpy as np
+    import torch
+    from speakerverification_tpu_torch.inference import InferenceEngine
+    h = RESNETSE_HPARAMS
+    j1 = serve_over_http("J1", h, bn_seed=50, device=E_DEVICE)
+    engine = j1["engine"]
+    waves = (0.1 * np.random.default_rng(51).normal(
+        0, 1, (j1["n_crops"], j1["samples"]))).astype(np.float32)
+    throughput("J1 ResNetSE34V2", engine, waves, h["num_eval"], card)
+    peak = peak_gib(lambda: engine.embed_fn(waves))
+    log(f"[J1] peak memory of a served batch ({len(waves)} crops): "
+        f"{peak:.2f} GiB ({card})")
+    profile("J1", engine, waves)
+    counts = dict(j1["counts"])
+    for features in ("mfcc", "spectrogram"):
+        hf = {**h, "features": features,
+              "model": {**h["model"], "feature_type": features}}
+        e = InferenceEngine(hf, device=E_DEVICE)
+        randomize_bn_(e.model, seed=52)
+        e.embed_fn(waves[:16])
+        torch.cuda.synchronize()
+        reset_counts()
+        compare_with_cpu(e, waves[:16], f"J1 {features}")
+        got = read_counts()
+        if any(got.values()):
+            fail(f"path J1 {features}: kernels launched {got} (the mel "
+                 "kernel is melspectrogram-only)")
+        throughput(f"J1 ResNetSE34V2 {features}", e, waves, h["num_eval"],
+                   card)
+        del e
+    return {**j1, "counts": counts, "waves": waves, "peak_gib": peak}
+
+
+def int8_served(tag: str, h: dict, waves, float_emb, table,
+                bn_seed: int, card: str) -> dict:
+    """``h`` with ``quant: int8`` through the engine (calibrated on the
+    batch): K3's launches at ``table``'s shapes, the embeddings against
+    the plain int8 path on the CPU (same scales) and ``float_emb``."""
+    import copy
+
+    import numpy as np
+    import torch
+    from speakerverification_tpu_torch.inference import InferenceEngine
+    from speakerverification_tpu_torch.quant import make_int8_embed_fn
+    engine = InferenceEngine({**h, "quant": "int8"}, device=E_DEVICE)
+    randomize_bn_(engine.model, seed=bn_seed)
+    engine.embed_fn(waves)                       # calibrates on this batch
+    torch.cuda.synchronize()
+    reset_counts()
+    with quant_shape_log() as shapes:
+        got = engine.embed_fn(waves).cpu().numpy()
+        torch.cuda.synchronize()
+    counts = read_counts()
+    want = {"mel_frontend": 1, "res2net_cascade": 0,
+            "quant_matmul": sum(r[2] for r in table)}
+    log(f"[{tag}] {h['model']['name']} int8, {len(engine.act_scales)} "
+        f"calibrated layers: launches per forward {counts}")
+    if counts != want or not log_quant_shapes(shapes, 1, table, tag):
+        fail(f"path {tag}: expected {want} at the table's shapes, got "
+             f"{counts}")
+    n_cpu = 16
+    cpu = make_int8_embed_fn(copy.deepcopy(engine.model).cpu(),
+                             act_scales=engine.act_scales)
+    cos = cosines(got[:n_cpu], cpu(torch.from_numpy(waves[:n_cpu])).numpy())
+    ok = bool(np.isfinite(got).all()) and cos.min() >= 0.999
+    log(f"[{tag}] int8 on the card vs the plain int8 path on the CPU, same "
+        f"scales, {n_cpu} crops: min cos {cos.min():.7f} (need >= 0.999) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"path {tag}: int8 embeddings on the card disagree with the CPU")
+    cos = cosines(got, float_emb)
+    ok = cos.min() >= 0.99
+    log(f"[{tag}] int8 vs float embeddings on the card, {len(waves)} crops: "
+        f"min cos {cos.min():.5f}, mean {cos.mean():.5f} (need >= 0.99) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"path {tag}: int8 embeddings stray from the float path")
+    throughput(f"{tag} {h['model']['name']} int8", engine, waves,
+               h["num_eval"], card)
+    return counts
+
+
+def path_j2(j1: dict, dev, gen, card: str) -> dict:
+    """int8: ResNetSE34V2 (J1's weights) and Raw_ECAPA_conv_asp
+    (voxceleb_raw_ecapa.yaml) served with ``quant: int8``; then K3 at
+    every new shape, fp32 and bf16, bit for bit and timed."""
+    import numpy as np
+    import torch
+    from speakerverification_tpu_torch.inference import InferenceEngine
+    counts = dict.fromkeys(KERNELS, 0)
+    waves = j1["waves"]
+    float_emb = j1["engine"].embed_fn(waves).cpu().numpy()
+    for k, v in int8_served("J2", RESNETSE_HPARAMS, waves, float_emb,
+                            zoo_quant_table("ResNetSE34V2"), 50,
+                            card).items():
+        counts[k] += v
+    h = RAW_ECAPA_HPARAMS
+    raw_waves = (0.1 * np.random.default_rng(53).normal(0, 1, (
+        BATCH_UTTS * h["num_eval"], crop_samples(h)))).astype(np.float32)
+    engine = InferenceEngine(h, device=E_DEVICE)
+    randomize_bn_(engine.model, seed=54)
+    float_emb = engine.embed_fn(raw_waves).cpu().numpy()
+    del engine
+    for k, v in int8_served("J2", h, raw_waves, float_emb,
+                            zoo_quant_table("Raw_ECAPA_conv_asp"), 54,
+                            card).items():
+        counts[k] += v
+    rows = [check_quant_shape(dev, gen, x_shape, N, dtype, per_fwd, layer)
+            for x_shape, N, per_fwd, layer in ZOO_QUANT_SHAPES
+            for dtype in (torch.float32, torch.bfloat16)]
+    labels = [s for s in ZOO_QUANT_SHAPES for _ in (0, 1)]
+    for model in ("ResNetSE34V2", "Raw_ECAPA_conv_asp"):
+        for dt in ("float32", "bfloat16"):
+            mine = [r for r, (_, _, _, layer) in zip(rows, labels)
+                    if layer.startswith(model + " ")
+                    and r["shape"].endswith(dt)]
+
+            def total(key):
+                return sum((r[key] or 0.0) * r["launches_per_forward"]
+                           for r in mine)
+            log(f"[J2 {model} new shapes per forward {dt}] K3 "
+                f"{total('ms'):.3f} ms, bound {total('bound_ms'):.3f} ms, "
+                f"_int_mm chain {total('library_ms'):.3f} ms, float layers "
+                f"{total('float_ms'):.3f} ms, plain {total('plain_ms'):.3f} "
+                f"ms over {sum(r['launches_per_forward'] for r in mine)} "
+                f"launches")
+    return {"counts": counts, "k3": rows}
+
+
+def path_j3(card: str) -> dict:
+    """TitaNet-L, Tita_ECAPA, Raw_tita and Res_ECAPA at their builders'
+    defaults: one served batch (8 x 20 crops of 2 s) each on the card,
+    its launches, forward ms and peak memory, 16 crops against the CPU."""
+    import numpy as np
+    import torch
+    from speakerverification_tpu_torch.inference import InferenceEngine
+    counts = dict.fromkeys(KERNELS, 0)
+    out = {}
+    for i, name in enumerate(ZOO_MODELS):
+        h = zoo_hparams(name)
+        engine = InferenceEngine(h, device=E_DEVICE)
+        randomize_bn_(engine.model, seed=60 + i)
+        n_params = sum(p.numel() for p in engine.model.parameters())
+        waves = (0.1 * np.random.default_rng(60 + i).normal(0, 1, (
+            BATCH_UTTS * h["num_eval"], crop_samples(h)))).astype(np.float32)
+        engine.embed_fn(waves)                           # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        peak = peak_gib(lambda: engine.embed_fn(waves))
+        got = read_counts()
+        want = {"mel_frontend": 1, "res2net_cascade": 0, "quant_matmul": 0}
+        log(f"[J3] {name} on {engine.device}: {n_params / 1e6:.2f} M params;"
+            f" a served batch of {len(waves)} crops: peak memory "
+            f"{peak:.2f} GiB, launches {got} ({card})")
+        if got != want:
+            fail(f"path J3 {name}: expected {want}, got {got}")
+        for k, v in got.items():
+            counts[k] += v
+        throughput(f"J3 {name}", engine, waves, h["num_eval"], card)
+        compare_with_cpu(engine, waves[:16], f"J3 {name}")
+        out[name] = {"peak_gib": peak, "params": n_params}
+        del engine
+    return {"counts": counts, "models": out}
+
+
+def path_j4(card: str) -> dict:
+    """The 64 x 2-crop AAmSoftmax (5,994) + AdaBelief step of ResNetSE34V2
+    and TitaNet-L: the gradient by module on the card against the CPU
+    from one state (4 speakers x 2 crops, dropout off), then the full
+    step timed in fp32 and bf16 (TitaNet's dropout drawn from a
+    generator on the card), peak memory and busy share."""
+    import torch
+    counts = dict.fromkeys(KERNELS, 0)
+    out = {}
+    for name, h in (("ResNetSE34V2", RESNETSE_HPARAMS),
+                    ("TitaNet", zoo_hparams("TitaNet"))):
+        cpu, _ = train_state(h, "cpu")
+        card_state, _ = train_state(h, E_DEVICE)
+        for st in (cpu, card_state):
+            dropout_off(st.model)
+        copy_state(cpu, card_state)
+        wave, label = seeded_batch(70, 4, 2, h)
+        reset_counts()
+        g_card = loss_grads(card_state, torch.from_numpy(wave).to(E_DEVICE),
+                            torch.from_numpy(label).to(E_DEVICE))
+        torch.cuda.synchronize()
+        for k, v in read_counts().items():
+            counts[k] += v
+        g_cpu = loss_grads(cpu, torch.from_numpy(wave),
+                           torch.from_numpy(label))
+        grad = module_cosines(g_card, g_cpu, _zoo_module,
+                              J_ZERO_GRAD[name])
+        low = min(v["cos"] for v in grad.values())
+        ok = low >= 0.999
+        log(f"[J4 {name} gradient] card vs CPU at the initial state, dropout"
+            f" off, {len(grad)} modules, lowest cos {low:.7f} (bar 0.999): "
+            + json.dumps(grad) + (" ok" if ok else " FAIL"))
+        if not ok:
+            fail(f"path J4 {name}: the card's gradient disagrees with the "
+                 "CPU's")
+        del cpu, card_state
+        gen = torch.Generator(device=E_DEVICE)
+        reset_counts()
+        gen.manual_seed(5)
+        fp32 = time_steps(f"{name} fp32", h, card, tag="J4",
+                          step_args=(gen,))
+        gen.manual_seed(6)
+        bf16 = time_steps(f"{name} bf16 mixedprec", {**h, "mixedprec": True},
+                          card, tag="J4", step_args=(gen,))
+        timed = read_counts()
+        if timed["mel_frontend"] < fp32["steps"] + bf16["steps"]:
+            fail(f"path J4 {name}: K1 launched {timed['mel_frontend']} "
+                 "times in the timed steps")
+        for k, v in timed.items():
+            counts[k] += v
+        out[name] = {"fp32": fp32, "bf16": bf16}
+    return {"counts": counts, **out}
+
+
+def path_j(tmp, card: str, dev, gen) -> dict:
+    """The tenth slice (J1-J5): ResNetSE34V2 over HTTP with its mfcc and
+    spectrogram variants (J1), int8 of ResNetSE34V2 and
+    Raw_ECAPA_conv_asp with K3 at every new shape (J2), TitaNet-L,
+    Tita_ECAPA, Raw_tita and Res_ECAPA served (J3), the ResNetSE34V2 and
+    TitaNet-L train steps (J4), ``--do_train`` then ``--do_infer --eval``
+    through the CLI (J5)."""
+    walls = {}
+
+    def timed_phase(phase, fn, *args, **kwargs):
+        t0 = time.time()
+        out = fn(*args, **kwargs)
+        walls[phase] = round(time.time() - t0, 1)
+        return out
+
+    j1 = timed_phase("J1", path_j1, card)
+    j2 = timed_phase("J2", path_j2, j1, dev, gen, card)
+    del j1["engine"]
+    j3 = timed_phase("J3", path_j3, card)
+    j4 = timed_phase("J4", path_j4, card)
+    j5 = timed_phase("J5", path_e4, tmp, card, RESNETSE_HPARAMS, tag="J5",
+                     epochs=1, n_spk=160)
+    counts = {k: j1["counts"][k] + j2["counts"][k] + j3["counts"][k]
+              + j4["counts"][k] + j5["counts"][k] for k in KERNELS}
+    log(f"[J] launches over J1-J5: {counts}; wall by phase (s) {walls}, "
+        f"{sum(walls.values()):.1f} s in all")
+    int8 = (sum(r[2] for r in zoo_quant_table("ResNetSE34V2"))
+            + sum(r[2] for r in zoo_quant_table("Raw_ECAPA_conv_asp")))
+    if counts["res2net_cascade"] or counts["quant_matmul"] != int8 \
+            or counts["mel_frontend"] < 1:
+        fail(f"path J: unexpected launches {counts}")
+    return {"counts": counts, "k3": j2["k3"], "j3": j3["models"],
+            "j4": {k: j4[k] for k in ("ResNetSE34V2", "TitaNet")},
+            "epochs_s": j5["epochs_s"]}
+
+
+# ----------------------------------------------------------------------
 # F2's fp32 convolution gradient: remedies side by side (--f2-conv)
 # ----------------------------------------------------------------------
 # each in a process of its own: cuDNN's algorithm cache, its workspace
@@ -3677,6 +4048,31 @@ def conformer() -> None:
         f"{out['counts']} ({card})")
 
 
+def zoo() -> None:
+    """Path J alone, after the kernels' build: the quick check of the
+    tenth slice."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_kernels()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tmp = Path(tempfile.mkdtemp(prefix="svtorch_zoo_"))
+    try:
+        out = path_j(tmp, card, dev, gen)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[J] passed in {time.time() - T_START:.1f} s; launches "
+        f"{out['counts']} ({card})")
+
+
 def data_path() -> None:
     """Path H alone, path G's corpora written first, after the kernels'
     build: the quick check of the data path."""
@@ -3775,9 +4171,15 @@ def main() -> None:
         i = path_i(tmp, card, dev, gen)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    tmp = Path(tempfile.mkdtemp(prefix="svtorch_zoo_"))
+    try:
+        j = path_j(tmp, card, dev, gen)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     paths = {"A": a["counts"], "B": b["counts"], "C": c["counts"],
              "D": d["counts"], "E": e["counts"], "F": f["counts"],
-             "G": g["counts"], "H": h["counts"], "I": i["counts"]}
+             "G": g["counts"], "H": h["counts"], "I": i["counts"],
+             "J": j["counts"]}
     by_path = {k: {p: counts[k] for p, counts in paths.items()}
                for k in KERNELS}
 
@@ -3790,13 +4192,17 @@ def main() -> None:
         if layer.startswith("Conformer ") and r["shape"].endswith("float32")]
     hot_dense = max(conformer_k3,
                     key=lambda r: r["ms"] * r["launches_per_forward"])
+    # K3's new shape with the most time per forward on path J (fp32)
+    hot_zoo = max((r for r in j["k3"] if r["shape"].endswith("float32")),
+                  key=lambda r: r["ms"] * r["launches_per_forward"])
     main_shapes = {"mel_frontend": ("raw3_ecapa 8k", "raw_ecapa 16k",
                                     "raw_ecapa 16k train",
                                     "raw3_ecapa 8k train",
                                     "ecapa_tdnn 16k train",
                                     "model_plot 16k train"),
                    "res2net_cascade": ("H128 B80 d2 float32",),
-                   "quant_matmul": (HOT_QUANT, hot_dense["shape"])}
+                   "quant_matmul": (HOT_QUANT, hot_dense["shape"],
+                                    hot_zoo["shape"])}
     meta = {
         "mel_frontend": ("speakerverification_tpu_torch/csrc/mel_frontend.cu",
                          "speakerverification_tpu/ops/pallas_frontend.py:68"),
@@ -3806,10 +4212,12 @@ def main() -> None:
         "quant_matmul": ("speakerverification_tpu_torch/csrc/quant_matmul.cu",
                          "speakerverification_tpu/ops/pallas_quant.py:42"),
     }
-    kernels = []
-    for r in k1 + k2 + k3 + i["k3"]:
-        if r["shape"] not in main_shapes[r["name"]]:
+    kernels, seen = [], set()
+    for r in k1 + k2 + k3 + i["k3"] + j["k3"]:
+        if r["shape"] not in main_shapes[r["name"]] \
+                or (r["name"], r["shape"]) in seen:
             continue
+        seen.add((r["name"], r["shape"]))
         src, repl = meta[r["name"]]
         kernels.append({
             "name": r["name"], "route": "cuda", "source": src,
@@ -3844,5 +4252,7 @@ if __name__ == "__main__":
         data_path()
     elif sys.argv[1:2] == ["--conformer"]:
         conformer()
+    elif sys.argv[1:2] == ["--zoo"]:
+        zoo()
     else:
         main()

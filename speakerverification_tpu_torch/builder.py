@@ -2,7 +2,9 @@
 
 Frontend config, compute dtype, the ``SpeakerEncoder`` for a registered
 model (``ECAPA_TDNN``, the ``Raw*_ECAPA*`` hybrids, the RawNet2 family,
-``Conformer`` and ``ECAPA_Conformer``) with its loss head
+``Conformer`` and ``ECAPA_Conformer``, the ResNetSE, SE-ResNet and
+TitaNet families, ``Tita_ECAPA``, ``Raw_tita`` and ``Res_ECAPA``) with
+its loss head
 (``criterion``), the optimizer (``optimizer``) and the learning-rate
 schedule (``callbacks``). ``frontend_backend`` and
 ``model.conv_backend`` take ``'auto' | 'xla' | 'pallas'``: ``'pallas'``
@@ -62,8 +64,12 @@ def build_model(name: str, **kwargs):
         conformer,
         ecapa_tdnn,
         hybrids,
+        hybrids2,
         rawnet2,
         rawnet2_custom,
+        resnetse,
+        senet,
+        titanet,
     )
     return MODELS.get(name)(**kwargs)
 

@@ -41,11 +41,13 @@ import torch.nn.functional as F
 from speakerverification_tpu_torch.models.layers import (
     AttentiveStatisticsPooling,
     BatchNorm1d,
+    Dropout,
     SERes2NetBlock,
     TDNNBlock,
     at_least_fp32,
     batch_norm,
     bn_module,
+    feature_dim,
     gelu_exact,
     promoted,
 )
@@ -105,29 +107,6 @@ def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     bf16 and an fp32 operand."""
     dt = torch.promote_types(a.dtype, b.dtype)
     return torch.matmul(a.to(dt), b.to(dt))
-
-
-class Dropout(nn.Module):
-    """flax's ``nn.Dropout``: in training, each element is kept with
-    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``; the mask
-    comes from ``rng``, a ``torch.Generator`` on x's device. Off in eval
-    and at rate 0, where no generator is needed."""
-
-    def __init__(self, rate: float):
-        super().__init__()
-        self.rate = float(rate)
-
-    def forward(self, x: torch.Tensor,
-                rng: Optional[torch.Generator]) -> torch.Tensor:
-        if not self.training or self.rate == 0.0:
-            return x
-        if rng is None:
-            raise ValueError("a training forward with dropout needs a "
-                             "torch.Generator (rng)")
-        zero = torch.zeros((), dtype=x.dtype, device=x.device)
-        keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
-        return torch.where(mask, x / keep, zero)
 
 
 class RelativeMultiHeadAttention(nn.Module):
@@ -395,7 +374,7 @@ def _feature_type(kwargs) -> str:
 def build_conformer(nOut: int = 512, **kwargs) -> ConformerSpeaker:
     """Factory keyed by ``model.name: Conformer`` (``encoder_dim`` and
     ``num_layers`` taken from the model keys, as in JAX)."""
-    return ConformerSpeaker(n_mels=int(kwargs.get("n_mels", 80)), nOut=nOut,
+    return ConformerSpeaker(n_mels=feature_dim(kwargs), nOut=nOut,
                             feature_type=_feature_type(kwargs),
                             encoder_dim=int(kwargs.get("encoder_dim", 256)),
                             num_layers=int(kwargs.get("num_layers", 6)))
@@ -407,7 +386,7 @@ def build_ecapa_conformer(nOut: int = 192, **kwargs) -> ECAPAConformer:
     builder it ignores ``conv_backend``."""
     known = {k: tuple(kwargs[k]) for k in ("channels", "kernel_sizes",
                                            "dilations") if k in kwargs}
-    return ECAPAConformer(n_mels=int(kwargs.get("n_mels", 80)), nOut=nOut,
+    return ECAPAConformer(n_mels=feature_dim(kwargs), nOut=nOut,
                           feature_type=_feature_type(kwargs),
                           encoder_dim=int(kwargs.get("encoder_dim", 144)),
                           num_layers=int(kwargs.get("num_layers", 16)),

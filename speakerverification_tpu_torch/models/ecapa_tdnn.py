@@ -27,6 +27,7 @@ from speakerverification_tpu_torch.models.layers import (
     BatchNorm1d,
     SERes2NetBlock,
     TDNNBlock,
+    feature_dim,
     frozen_running_stats,
     gelu_exact,
     promoted,
@@ -127,5 +128,5 @@ def build_ecapa_tdnn(nOut: int = 192, **kwargs) -> ECAPA_TDNN:
         if k in known:
             known[k] = tuple(known[k])
     feature_type = kwargs.get("feature_type", kwargs.get("features", "melspectrogram"))
-    return ECAPA_TDNN(n_mels=int(kwargs.get("n_mels", 80)), lin_neurons=nOut,
+    return ECAPA_TDNN(n_mels=feature_dim(kwargs), lin_neurons=nOut,
                       feature_type=feature_type, **known)

@@ -32,8 +32,10 @@ __all__ = [
     "at_least_fp32",
     "gelu_exact",
     "length_to_mask",
+    "feature_dim",
     "batch_norm",
     "frozen_running_stats",
+    "Dropout",
     "bn_module",
     "Conv1d",
     "BatchNorm1d",
@@ -73,6 +75,19 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+def feature_dim(kwargs) -> int:
+    """The width of the features a model's builder is handed: ``n_mfcc``
+    for ``mfcc``, ``n_fft // 2 + 1`` bins for ``spectrogram``, else
+    ``n_mels`` (the JAX modules read it from their input)."""
+    feature_type = kwargs.get("feature_type",
+                              kwargs.get("features", "melspectrogram"))
+    if feature_type == "mfcc":
+        return int(kwargs.get("n_mfcc", 80))
+    if feature_type == "spectrogram":
+        return int(kwargs.get("n_fft", 512)) // 2 + 1
+    return int(kwargs.get("n_mels", 80))
+
+
 def length_to_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """``[B] -> [B, max_len]`` float mask."""
     pos = torch.arange(max_len, device=lengths.device)[None, :]
@@ -97,14 +112,16 @@ def frozen_running_stats() -> Iterator[None]:
 
 
 def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
-    """``bn`` over the channels of ``x`` (``[B, C]`` or ``[B, C, T]``), as
-    flax's ``nn.BatchNorm(momentum=0.9)`` computes it; returns x's dtype.
+    """``bn`` over the channels of ``x`` (``[B, C, ...]``: the channel axis
+    is 1, any rank), as flax's ``nn.BatchNorm(momentum=0.9)`` computes it;
+    returns x's dtype.
 
     Training mode normalizes with the biased batch statistics, computed
     in fp32 at least whatever x's dtype (E[x²] − E[x]², clipped at 0), and
     updates the fp32 running statistics as flax does: ``ra = 0.9·ra +
     0.1·stat``, with the biased variance (torch's own update takes the
-    unbiased one). Eval mode is ``bn(x)``; when the parameters were cast
+    unbiased one). Eval mode is ``bn(x)``'s ``F.batch_norm`` (which, unlike
+    ``nn.BatchNorm1d``, takes any rank); when the parameters were cast
     to a lower precision than the running statistics (mixed-precision
     eval), the affine is computed in fp32."""
     shape = (1, -1) + (1,) * (x.dim() - 2)
@@ -127,10 +144,34 @@ def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
              + bn.bias.to(xf.dtype).view(shape))
         return y.to(x.dtype)
     if x.dtype == bn.weight.dtype == bn.running_mean.dtype:
-        return bn(x)
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)
     s = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
     t = bn.bias.float() - bn.running_mean.float() * s
     return (x.float() * s.view(shape) + t.view(shape)).to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout``: in training, each element is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``; the mask
+    comes from ``rng``, a ``torch.Generator`` on x's device. Off in eval
+    and at rate 0, where no generator is needed."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator]) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if rng is None:
+            raise ValueError("a training forward with dropout needs a "
+                             "torch.Generator (rng)")
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+        return torch.where(mask, x / keep, zero)
 
 
 def bn_module(features: int) -> nn.BatchNorm1d:

@@ -94,9 +94,6 @@ class RawNet2(nn.Module):
     """The embedding is the linear map of the GRU's last state; ``nOut``
     plays the reference's ``nb_fc_node`` role."""
 
-    # int8 extraction not held against the JAX package yet (quant.py)
-    int8_ported = False
-
     def __init__(self, nOut: int = 512, first_filters: int = 128,
                  block_filters: Tuple[Tuple[int, int], ...] = (
                      (128, 128), (128, 128), (128, 256), (256, 256),

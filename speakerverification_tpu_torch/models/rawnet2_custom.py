@@ -46,9 +46,6 @@ __all__ = ["RawNet2Custom", "build_rawnet2_custom"]
 
 
 class RawNet2Custom(nn.Module):
-    # int8 extraction not held against the JAX package yet (quant.py)
-    int8_ported = False
-
     def __init__(self, nOut: int = 512,
                  layers: Tuple[int, ...] = (1, 1, 1, 2, 1, 2),
                  filters: Tuple[int, ...] = (128, 128, 256, 256, 512, 512),

@@ -14,6 +14,11 @@ is the transposed flax ``GRUCell_0/hr/kernel``. The update is flax's:
 starts at zero in fp32, flax's ``param_dtype``: with bf16 weights and
 input the recurrent products promote to fp32, and so does every state
 after the first, as in JAX (``models.layers.promoted``).
+
+Float input products are taken for every step at once. Once ``quant.py``
+has swapped ``ir``/``iz``/``in`` for int8 layers, they run step by step,
+as flax's cell calls its input ``Dense`` once per step inside
+``nn.RNN``'s scan: each step's input is quantized with its own scale.
 """
 
 from __future__ import annotations
@@ -42,15 +47,20 @@ class GRUCell(nn.Module):
         self.hn = nn.Linear(features, features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # the input products of every step at once, in x's dtype
-        xr, xz, xn = (promoted(getattr(self, k), x) for k in ("ir", "iz", "in"))
+        names = ("ir", "iz", "in")
+        step_wise = not isinstance(self.ir, nn.Linear)   # int8 layers
+        if not step_wise:
+            # the input products of every step at once, in x's dtype
+            xs = [promoted(getattr(self, k), x) for k in names]
         h = torch.zeros(x.shape[0], self.features, dtype=torch.float32,
                         device=x.device)
         outs = []
         for t in range(x.shape[1]):
-            r = torch.sigmoid(xr[:, t] + promoted(self.hr, h))
-            z = torch.sigmoid(xz[:, t] + promoted(self.hz, h))
-            n = torch.tanh(xn[:, t] + r * promoted(self.hn, h))
+            xr, xz, xn = ([getattr(self, k)(x[:, t]) for k in names]
+                          if step_wise else [v[:, t] for v in xs])
+            r = torch.sigmoid(xr + promoted(self.hr, h))
+            z = torch.sigmoid(xz + promoted(self.hz, h))
+            n = torch.tanh(xn + r * promoted(self.hn, h))
             h = (1.0 - z) * n + z * h
             outs.append(h)
         return torch.stack(outs, dim=1)

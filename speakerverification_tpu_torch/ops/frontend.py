@@ -1,4 +1,5 @@
-"""GEMM-form audio frontend: pre-emphasis + windowed real DFT + mel.
+"""GEMM-form audio frontend: pre-emphasis + windowed real DFT + mel
+(+ dB + DCT for MFCC).
 
 Port of ``speakerverification_tpu/ops/frontend.py``. The constants (mel
 filterbank, window, DFT bases, frame indices) are the same numpy code;
@@ -7,10 +8,15 @@ the ops run in PyTorch:
     frames  = unfold(pad_reflect(pre_emphasis(x)))        # [B, F, n_fft]
     power   = (frames @ C)**2 + (frames @ S)**2           # windowed real DFT
     mel     = power @ M                                   # mel projection
+    mfcc    = power_to_db(mel) @ D                        # DCT-II
+
+``spectrogram`` stops at the power spectrum.
 
 This module is the plain path (``frontend_backend: xla``). The
-hand-written CUDA kernel for the same pipeline is in
+hand-written CUDA kernel for the mel pipeline is in
 ``ops/mel_frontend.py``; :func:`select_mel_frontend` picks between them.
+``mfcc`` and ``spectrogram`` always run here, as the JAX package runs
+them outside its Pallas kernel.
 Numerics follow the torchaudio-slaney convention (center=True reflect
 padding, periodic window padded to n_fft, power spectrum, slaney mel
 scale and filterbank normalization).
@@ -34,6 +40,8 @@ __all__ = [
     "mel_to_hz",
     "mel_filterbank",
     "dft_matrices",
+    "dct_matrix",
+    "power_to_db",
     "window_rows",
     "frame_indices",
     "reflect_pad",
@@ -139,6 +147,19 @@ def dft_matrices(n_fft: int, win_length: int, window: str = "hamming",
     return cos_b, sin_b
 
 
+def dct_matrix(n_mfcc: int, n_mels: int, norm: str = "ortho") -> np.ndarray:
+    """DCT-II basis ``[n_mels, n_mfcc]`` (torchaudio ``create_dct`` layout)."""
+    n = np.arange(n_mels, dtype=np.float64)
+    k = np.arange(n_mfcc, dtype=np.float64)[None, :]
+    dct = np.cos(np.pi / n_mels * (n[:, None] + 0.5) * k)
+    if norm == "ortho":
+        dct[:, 0] *= 1.0 / math.sqrt(2.0)
+        dct *= math.sqrt(2.0 / n_mels)
+    else:
+        dct *= 2.0
+    return dct.astype(np.float32)
+
+
 def window_rows(cfg: "FrontendConfig") -> tuple[int, int]:
     """Rows ``[lo, hi)`` of the :func:`dft_matrices` bases that the window
     covers; every other row is zero."""
@@ -161,6 +182,19 @@ def pre_emphasis(x: torch.Tensor, coef: float = 0.97) -> torch.Tensor:
     ``y[0] = x[0] - coef * x[1]`` (not zero-padded)."""
     prev = torch.cat([x[..., 1:2], x[..., :-1]], dim=-1)
     return x - coef * prev
+
+
+def power_to_db(power: torch.Tensor, top_db: Optional[float] = 80.0,
+                amin: float = 1e-10, ref: float = 1.0) -> torch.Tensor:
+    """Power → dB, clamped to ``top_db`` below the maximum of each row of
+    the leading axis (all other axes together), torchaudio's semantics."""
+    db = 10.0 * torch.log10(torch.clamp(power, min=amin))
+    db = db - 10.0 * math.log10(max(amin, ref))
+    if top_db is not None:
+        max_db = db.reshape(db.shape[0], -1).amax(dim=-1)
+        floor = (max_db - top_db).reshape((-1,) + (1,) * (db.dim() - 1))
+        db = torch.maximum(db, floor)
+    return db
 
 
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -241,21 +275,32 @@ def mel_constants(cfg: FrontendConfig, device) -> tuple[torch.Tensor, torch.Tens
     return _device_constants[key]
 
 
+_device_dct: dict = {}
+
+
+def _dct(cfg: FrontendConfig, device) -> torch.Tensor:
+    key = (cfg, str(torch.device(device)))
+    if key not in _device_dct:
+        _device_dct[key] = torch.as_tensor(dct_matrix(cfg.n_mfcc, cfg.n_mels),
+                                           device=device)
+    return _device_dct[key]
+
+
 def make_frontend(cfg: FrontendConfig = FrontendConfig(),
                   feature_type: str = "melspectrogram",
                   ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Build the plain ``wave [..., T] -> features [..., frames, n_mels]``.
+    """Build the plain ``wave [..., T] -> features [..., frames, D]``.
 
-    ``feature_type``: ``melspectrogram`` or ``raw`` (passthrough).
-    ``mfcc`` and ``spectrogram`` are not ported yet.
+    ``feature_type``: ``melspectrogram`` (D = n_mels), ``mfcc`` (D =
+    n_mfcc; ``top_db`` clamps each row of the flattened ``[-1, T]``
+    waves, so each crop on its own), ``spectrogram`` (the power
+    spectrum, D = n_fft // 2 + 1) or ``raw`` (passthrough). For the
+    mfcc factory's band edges (10/4000 Hz) build ``cfg`` with
+    ``FrontendConfig.from_hparams(..., "mfcc")``.
     """
     if feature_type == "raw":
         return lambda x: x
-    if feature_type in ("mfcc", "spectrogram"):
-        raise NotImplementedError(
-            f"feature_type {feature_type!r} is not ported yet "
-            "(melspectrogram and raw are)")
-    if feature_type != "melspectrogram":
+    if feature_type not in ("melspectrogram", "mfcc", "spectrogram"):
         raise ValueError(f"unknown feature_type {feature_type!r}")
 
     def frontend(x: torch.Tensor) -> torch.Tensor:
@@ -272,7 +317,12 @@ def make_frontend(cfg: FrontendConfig = FrontendConfig(),
         power = re * re + im * im                            # [B, F, K]
         if cfg.power != 2.0:
             power = torch.pow(power.clamp_min(0.0), cfg.power / 2.0)
-        out = power @ fb
+        if feature_type == "spectrogram":
+            out = power
+        else:
+            out = power @ fb
+            if feature_type == "mfcc":
+                out = power_to_db(out, cfg.top_db) @ _dct(cfg, x.device)
         return out.reshape(batch_shape + out.shape[-2:])
 
     return frontend

@@ -38,7 +38,7 @@ from speakerverification_tpu_torch.ops.quant_matmul import (
 from speakerverification_tpu_torch.weights import cast_copy
 
 __all__ = ["QuantConfig", "QuantConv1d", "QuantLinear", "quantizable",
-           "check_int8_ported", "quantize_model", "calibrate_act_scales",
+           "check_calibratable", "quantize_model", "calibrate_act_scales",
            "int8_apply", "make_int8_embed_fn"]
 
 @dataclasses.dataclass(frozen=True)
@@ -188,15 +188,26 @@ class QuantConv1d(_QuantGemm):
         return self.gemm(cols.contiguous())
 
 
-def check_int8_ported(model: nn.Module) -> None:
-    """Raise ``NotImplementedError`` when ``model`` holds a module whose
-    class sets ``int8_ported = False``: its int8 extraction is not held
-    against the JAX package yet, so it serves no unchecked numbers."""
-    names = sorted({type(m).__name__ for m in model.modules()
-                    if not getattr(m, "int8_ported", True)})
-    if names:
+def check_calibratable(model: nn.Module,
+                       config: Optional[QuantConfig] = None) -> None:
+    """Raise ``NotImplementedError`` when ``model`` holds a GRU with a
+    layer that ``config`` quantizes. The JAX package cannot calibrate such
+    a model: its recorder reads ``float(jnp.max(...))`` of the layer's
+    input, which inside ``nn.RNN``'s scan is traced, so static int8 (and
+    ``quant: int8``) of the RawNet2 GRU models fails there. The port keeps
+    that limit; dynamic int8 (no ``act_scales``) works in both."""
+    from speakerverification_tpu_torch.models.recurrent import GRUCell
+    cfg = config or QuantConfig()
+    grus = sorted(_key(n) for n, m in model.named_modules()
+                  if isinstance(m, GRUCell)
+                  and any(quantizable(c, cfg) for c in m.children()))
+    if grus:
         raise NotImplementedError(
-            f"quant: int8 of {', '.join(names)} is not ported yet")
+            f"static int8 calibration of the GRU ({', '.join(grus)}) is not "
+            "ported: the JAX package cannot calibrate a layer inside "
+            "nn.RNN's scan (its recorder reads a traced max), so quant: "
+            "int8 of this model fails there too; dynamic int8 (int8_apply "
+            "without act_scales) works")
 
 
 def quantize_model(model: nn.Module, config: Optional[QuantConfig] = None,
@@ -210,7 +221,6 @@ def quantize_model(model: nn.Module, config: Optional[QuantConfig] = None,
     keys are swapped, each with its scale; a key that names no
     quantizable module raises ``KeyError``. Without (dynamic mode) every
     quantizable module is swapped."""
-    check_int8_ported(model)
     cfg = config or QuantConfig()
     targets = {_key(n): (n, m) for n, m in model.named_modules()
                if quantizable(m, cfg)}
@@ -238,9 +248,10 @@ def calibrate_act_scales(model: nn.Module, *args,
     ``{flax path: max|input| * margin}`` for every quantizable module
     that is called. ``margin`` leaves headroom for later batches that
     run hotter than the calibration batch (static int8 saturates at
-    ±127·scale)."""
-    check_int8_ported(model)
+    ±127·scale). A model with a quantized GRU raises
+    (:func:`check_calibratable`)."""
     cfg = config or QuantConfig()
+    check_calibratable(model, cfg)
     scales: dict = {}
 
     def recorder(key):

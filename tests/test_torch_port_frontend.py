@@ -1,4 +1,5 @@
-"""Port mel frontend against the JAX package.
+"""Port frontend (mel, and since the tenth slice mfcc and spectrogram)
+against the JAX package.
 
 The port's plain frontend and the mel kernel's pipeline (on a CPU tensor
 it runs the kernel's plain version) against JAX ``make_frontend`` and
@@ -98,10 +99,61 @@ def test_pre_emphasis_first_sample_reflects():
     np.testing.assert_allclose(got[:, 0], x[:, 0] - 0.97 * x[:, 1], rtol=1e-6)
 
 
+def _crops_of_unequal_loudness(seed: int) -> np.ndarray:
+    """``[B, crops, T]`` waves whose crops differ in level by up to 10^5,
+    so that a ``top_db`` clamp against the utterance's maximum (not each
+    crop's) would floor the quiet crops."""
+    x = np.random.default_rng(seed).normal(0, 1, (2, 3, 4000))
+    x *= np.array([[1.0, 1e-3, 30.0], [1e-2, 1.0, 1e-4]])[:, :, None]
+    return x.astype(np.float32)
+
+
 @pytest.mark.parametrize("feature_type", ["mfcc", "spectrogram"])
-def test_unported_feature_types_raise(feature_type):
-    with pytest.raises(NotImplementedError):
-        tf.make_frontend(tf.FrontendConfig(), feature_type)
+def test_mfcc_and_spectrogram_match_jax(feature_type):
+    """Each band-edge default of ``from_hparams`` (mfcc: 10/4000 Hz) and
+    ``[B, crops, T]`` input. Tolerance 1e-5 of the largest value for each
+    crop (the spectrogram's crops differ by 10^10 in power)."""
+    h = {"sample_rate": 16000, "n_mfcc": 40, "n_mels": 64}
+    jcfg = jf.FrontendConfig.from_hparams(h, feature_type)
+    tcfg = tf.FrontendConfig.from_hparams(h, feature_type)
+    x = _crops_of_unequal_loudness(seed=1)
+    ref = np.asarray(jf.make_frontend(jcfg, feature_type)(jnp.asarray(x)))
+    got = tf.make_frontend(tcfg, feature_type)(t(x)).numpy()
+    width = 40 if feature_type == "mfcc" else 257
+    assert got.shape == ref.shape == (2, 3, 26, width)
+    for b in range(2):
+        for c in range(3):
+            close(got[b, c], ref[b, c], REL, f"{feature_type} [{b}, {c}]")
+    # the mel kernel stays melspectrogram-only, as JAX dispatches it
+    assert tf.select_mel_frontend(tcfg, feature_type, "pallas", t(x)) \
+        .__qualname__.startswith("make_frontend")
+
+
+def test_mfcc_top_db_clamps_each_crop():
+    """``top_db`` clamps each row of the flattened ``[-1, T]`` waves: a
+    quiet crop keeps its own 80 dB range, whatever its utterance holds."""
+    cfg = tf.FrontendConfig.from_hparams({"sample_rate": 16000}, "mfcc")
+    x = t(_crops_of_unequal_loudness(seed=2))
+    fb = torch.as_tensor(tf.mel_filterbank(257, 80, 16000, 10.0, 4000.0))
+    mel = tf.make_frontend(cfg, "spectrogram")(x) @ fb   # [2, 3, F, 80]
+    per_crop = tf.power_to_db(mel.reshape(6, 26, 80))
+    per_utt = tf.power_to_db(mel.reshape(2, 78, 80)).reshape(6, 26, 80)
+    span = per_crop.amax(dim=(1, 2)) - per_crop.amin(dim=(1, 2))
+    assert float(span.max()) <= 80.0 + 1e-4
+    assert not torch.allclose(per_crop, per_utt)      # the quiet crops
+    np.testing.assert_allclose(
+        per_crop.numpy(), np.asarray(jf.power_to_db(jnp.asarray(
+            mel.reshape(6, 26, 80).numpy()))), rtol=0, atol=1e-4)
+    got = tf.make_frontend(cfg, "mfcc")(x).reshape(6, 26, 80)
+    torch.testing.assert_close(
+        got, per_crop @ torch.as_tensor(tf.dct_matrix(80, 80)),
+        rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("norm", ["ortho", None])
+def test_dct_matrix_matches_jax(norm):
+    np.testing.assert_array_equal(tf.dct_matrix(40, 64, norm),
+                                  jf.dct_matrix(40, 64, norm))
 
 
 def test_raw_is_passthrough_and_backend_choice():

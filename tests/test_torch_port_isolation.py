@@ -50,7 +50,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                      "ops.specaugment", "ops.device_augment",
                      "ops.timeaugment", "data.wavio", "data.shards",
                      "data.vad", "data.wav_conversion", "data.quality",
-                     "data.dataprep", "cli.dataprep"):
+                     "data.dataprep", "cli.dataprep", "models.conformer",
+                     "models.resnetse", "models.senet", "models.titanet",
+                     "models.hybrids2"):
         assert f"speakerverification_tpu_torch.{expected}" in res["modules"]
     loaded = res["loaded"]
     # the GPU host has neither msgpack, ml_dtypes nor PyYAML: the codec is

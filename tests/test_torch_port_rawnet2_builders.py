@@ -87,28 +87,59 @@ def test_rawnet2_custom_builder_keys_follow_jax():
     assert m.SampleLayerNorm_0.gamma.shape == (32000,)
 
 
-def test_int8_of_the_family_is_refused_by_name(tmp_path):
-    """int8 extraction of the RawNet2 family is not held against the JAX
-    package yet: the engine refuses it rather than serve unchecked
-    numbers."""
+def test_engine_serves_int8_of_the_asp_family(tmp_path):
+    """``quant: int8`` of a RawNet2-family model whose calibration works in
+    the JAX package: the engine calibrates the raw branch's convs and
+    Denses as well as the ECAPA branch's, under JAX's keys, and its
+    embeddings stay near the float engine's (cosine >= 0.99, the bar of
+    chip_smoke's int8 paths). Scales and embeddings against JAX are held
+    in ``test_torch_port_rawnet2_int8.py``."""
     from speakerverification_tpu_torch.inference import InferenceEngine
     h = {**hparams_for("Raw_ECAPA_conv_asp", "voxceleb_raw_ecapa.yaml"),
-         "quant": "int8", "save_folder": str(tmp_path)}
-    with pytest.raises(NotImplementedError, match="int8 of RawNet2Custom"):
-        InferenceEngine(h, device="cpu")
+         "save_folder": str(tmp_path)}
+    x = (0.1 * np.random.default_rng(1).normal(0, 1, (3, T))).astype(
+        np.float32)
+    float_emb = InferenceEngine(h, device="cpu").embed_fn(x).numpy()
+    engine = InferenceEngine({**h, "quant": "int8"}, device="cpu")
+    got = engine.embed_fn(x).numpy()
+    raw = sorted(k for k in engine.act_scales
+                 if k.startswith("backbone/raw_branch/"))
+    assert "backbone/raw_branch/RawNetBasicBlock_5/Conv_2" in raw
+    assert "backbone/raw_branch/Dense_0" in raw and len(raw) == 16
+    cos = np.sum(got * float_emb, 1) / (np.linalg.norm(got, axis=1)
+                                        * np.linalg.norm(float_emb, axis=1))
+    assert cos.min() >= 0.99, cos
 
 
-@pytest.mark.parametrize("name", ["RawNet2", "RawNet2_custom",
-                                  "Raw_ECAPA_conv_asp"])
-def test_int8_quantization_refuses_the_family(name):
-    """The refusal lives in ``quant.py``: calibrating or quantizing any
-    model that holds a RawNet2-family module raises, whatever calls it."""
+GRU_MODELS = [("RawNet2", "vlsp_rawnet2.yaml"),
+              ("RawNet2_custom", "vlsp_rawnet2.yaml"),
+              ("Raw_ECAPA_sinc_gru", "dataprep.yaml"),
+              ("Raw_ECAPA_hype", "voxceleb_raw_ecapa.yaml")]
+
+
+@pytest.mark.parametrize("model,yaml_name", GRU_MODELS,
+                         ids=[m for m, _ in GRU_MODELS])
+def test_int8_calibration_refuses_the_gru_models(model, yaml_name,
+                                                 tmp_path):
+    """Static int8 of a model whose GRU has a layer to quantize fails in
+    the JAX package (its calibration cannot read a layer's input inside
+    ``nn.RNN``'s scan; ``test_torch_port_rawnet2_int8`` holds that side):
+    the port refuses it by name, in ``calibrate_act_scales`` and in the
+    int8 engine, while dynamic int8 quantizes the GRU."""
+    from speakerverification_tpu_torch.inference import InferenceEngine
     from speakerverification_tpu_torch.quant import (
+        QuantLinear,
         calibrate_act_scales,
         quantize_model,
     )
-    model = TB.encoder_from_hparams(hparams_for(name, "voxceleb_raw_ecapa.yaml"))
-    with pytest.raises(NotImplementedError, match="int8 of RawNet2"):
-        quantize_model(model)
-    with pytest.raises(NotImplementedError, match="int8 of RawNet2"):
-        calibrate_act_scales(model, torch.zeros(1, T))
+    h = hparams_for(model, yaml_name)
+    tm = TB.encoder_from_hparams(h)
+    reason = r"GRU \(.*GRUCell_0\).*nn\.RNN's scan"
+    with pytest.raises(NotImplementedError, match=reason):
+        calibrate_act_scales(tm, torch.zeros(1, T))
+    with pytest.raises(NotImplementedError, match=reason):
+        InferenceEngine({**h, "quant": "int8",
+                         "save_folder": str(tmp_path)}, device="cpu")
+    gru = next(m for n, m in quantize_model(tm).named_modules()
+               if n.endswith("GRUCell_0"))
+    assert isinstance(gru.hr, QuantLinear)
