@@ -10,6 +10,8 @@
     python3 chip_smoke.py --conformer  # only path I (the Conformer family)
     python3 chip_smoke.py --zoo        # only path J (ResNetSE, TitaNet,
                                        # hybrids2, int8 of RawNet2)
+    python3 chip_smoke.py --train-zoo  # only path L (the loss and
+                                       # optimizer zoos)
 
 Phases, each of which fails the run:
   1. build the hand-written kernels from ``speakerverification_tpu_torch/csrc``
@@ -99,7 +101,22 @@ Phases, each of which fails the run:
      AAmSoftmax step of ResNetSE34V2 and TitaNet-L: the gradient by
      module against the CPU with dropout off, the step timed with
      dropout in fp32 and bf16; J5 ``--do_train`` then ``--do_infer
-     --eval`` through the CLI.
+     --eval`` through the CLI;
+ 14. path L: the loss and optimizer zoos on the default stack at path E's
+     width (Raw3_ECAPA, 8 kHz, 32 x 2 crops of 2 s, 13,103 classes): L1
+     the 17 new heads on the embeddings of one training forward, card
+     against CPU (loss, prec1, gradients), the embedding norms logged;
+     L2 each head in the train step, 10 steps on one batch, the loss
+     falling (a head that diverges or overflows as in JAX held to the
+     CPU's first step instead), the step timed, K1 counted; L3 the 24 new
+     optimizers and Lookahead over AdaBelief: three updates with
+     full-width gradient trees on the card against the CPU (Shampoo one,
+     its CPU side over the leaves with axes <= 4,096), then five train
+     steps, ``tx.update``
+     timed as its share of the step; L4 Adahessian's true second-order
+     step (double backward) against its plain one, time and peak
+     memory; L5 ``--do_train`` with MSAmSoftmax and Lamb, its optimizer
+     state read back, then ``--do_infer --eval``.
 Every path is compared with the same model's plain path on the CPU.
 
 The script imports nothing of the JAX package. hparams are built in code
@@ -1703,11 +1720,20 @@ def throughput(label: str, engine, waves, num_eval: int, card: str) -> None:
         f"{crops / num_eval / ms * 1e3:.1f} utterances/s ({card})")
 
 
+# calls per profile: the profiler's event tables take host CPU time in
+# proportion to the operators profiled (7.2 s for one call of ~14,000
+# small CPU operators on an 8-core host, 20.7 s for three), and a train
+# step runs ~14,000; with three calls per profile over ~30 profiles the
+# whole script took 997 and 1,170 s on two H100 machines whose timed
+# steps differed by 3 %
+PROFILE_CALLS = 1
+
+
 def profile(label: str, engine, waves, fn=None, top: int = 12,
             host: bool = False) -> None:
-    """Device time by kernel over three forwards (torch.profiler), or
-    over three calls of ``fn``; with ``host``, also the host's: aten
-    operators per call and those with the most self time, and the
+    """Device time by kernel over ``PROFILE_CALLS`` forwards
+    (torch.profiler), or calls of ``fn``; with ``host``, also the host's:
+    aten operators per call and those with the most self time, and the
     convolution gradients with the most device time, by input shapes."""
     import torch
     from torch.profiler import ProfilerActivity, profile as prof
@@ -1717,10 +1743,10 @@ def profile(label: str, engine, waves, fn=None, top: int = 12,
     with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
               record_shapes=host) as p:
         t0 = time.time()
-        for _ in range(3):
+        for _ in range(PROFILE_CALLS):
             fn()
         torch.cuda.synchronize()
-        wall = (time.time() - t0) / 3 * 1e3
+        wall = (time.time() - t0) / PROFILE_CALLS * 1e3
     # device-side events only (kernels, copies): an aten op's self device
     # time repeats the time of the kernels it launched
     events = [e for e in p.key_averages()
@@ -1731,27 +1757,29 @@ def profile(label: str, engine, waves, fn=None, top: int = 12,
                        getattr(e, "self_cuda_time_total", 0.0))
 
     rows = sorted(events, key=dev_us, reverse=True)
-    busy = sum(dev_us(e) for e in events) / 3 / 1e3
+    busy = sum(dev_us(e) for e in events) / PROFILE_CALLS / 1e3
     log(f"[{label} profile] wall {wall:.2f} ms per call, device busy "
         f"{busy:.2f} ms ({100 * busy / wall:.1f} %)")
     share = busy / wall
     for e in rows[:top]:
         if dev_us(e) <= 0:
             break
-        log(f"[{label} profile] {dev_us(e) / 3 / 1e3:8.3f} ms/call "
-            f"{100 * dev_us(e) / 3 / 1e3 / wall:5.1f} %  {e.count // 3:4d}x  "
-            f"{e.key[:90]}")
+        per_call = dev_us(e) / PROFILE_CALLS / 1e3
+        log(f"[{label} profile] {per_call:8.3f} ms/call "
+            f"{100 * per_call / wall:5.1f} %  "
+            f"{e.count // PROFILE_CALLS:4d}x  {e.key[:90]}")
     if host:
         ops = [e for e in p.key_averages()
                if e.device_type == torch.autograd.DeviceType.CPU
                and e.key.startswith("aten::")]
-        calls = sum(e.count for e in ops) / 3
+        calls = sum(e.count for e in ops) / PROFILE_CALLS
         log(f"[{label} profile] host: {calls:.0f} aten operator calls per "
             f"call ({wall / max(calls, 1) * 1e3:.1f} us of wall each)")
         for e in sorted(ops, key=lambda e: e.self_cpu_time_total,
                         reverse=True)[:6]:
-            log(f"[{label} profile] host {e.self_cpu_time_total / 3 / 1e3:8.3f}"
-                f" ms/call self {e.count // 3:5d}x  {e.key}")
+            log(f"[{label} profile] host "
+                f"{e.self_cpu_time_total / PROFILE_CALLS / 1e3:8.3f} "
+                f"ms/call self {e.count // PROFILE_CALLS:5d}x  {e.key}")
 
         def total_dev_us(e):
             return getattr(e, "device_time_total",
@@ -1760,17 +1788,19 @@ def profile(label: str, engine, waves, fn=None, top: int = 12,
                  if e.key == "aten::convolution_backward"]
         for e in sorted(convs, key=total_dev_us, reverse=True)[:4]:
             log(f"[{label} profile] conv backward "
-                f"{total_dev_us(e) / 3 / 1e3:8.3f} ms/call {e.count // 3:3d}x "
+                f"{total_dev_us(e) / PROFILE_CALLS / 1e3:8.3f} ms/call "
+                f"{e.count // PROFILE_CALLS:3d}x "
                 f"grad, input, weight {e.input_shapes[:3]}")
     # the port's kernels by their function names in csrc/
     for name, tag in (("K1", "mel_kernel"), ("K2", "cascade_kernel"),
                       ("K3", "qmm_")):
         mine = [e for e in events if tag in e.key]
         if mine:
-            ms = sum(dev_us(e) for e in mine) / 3 / 1e3
+            ms = sum(dev_us(e) for e in mine) / PROFILE_CALLS / 1e3
             log(f"[{label} profile] {name}: {ms:.3f} ms/call "
                 f"({100 * ms / wall:.1f} %) over "
-                f"{sum(e.count for e in mine) // 3} launches per forward")
+                f"{sum(e.count for e in mine) // PROFILE_CALLS} launches "
+                "per forward")
     return share
 
 
@@ -1997,8 +2027,8 @@ def path_e1(h) -> dict:
     return counts
 
 
-def time_steps(label: str, h, card: str, steps: int = 10,
-               warmup: int = 3, tag: str = "E2", built=None,
+def time_steps(label: str, h, card: str, steps: int = 6,
+               warmup: int = 2, tag: str = "E2", built=None,
                step_args=(), batch=None) -> dict:
     """ms per train step at the yaml's batch (``batch_size`` speakers x 2
     crops) by CUDA events over ``steps`` steps after ``warmup``, peak
@@ -3473,9 +3503,9 @@ def path_i4(card: str) -> dict:
     gen.manual_seed(3)
     check_learning("fp32 dropout", h, tag="I4", step_args=(gen,))
     timed = read_counts()
-    # 13 timed steps each (and the profiled ones), 20 learning steps: K1
-    # once a step
-    if timed["mel_frontend"] < 2 * (10 + 3) + 20:
+    # the timed steps of each (and the profiled ones), 20 learning steps:
+    # K1 once a step
+    if timed["mel_frontend"] < fp32["steps"] + bf16["steps"] + 20:
         fail(f"path I4: K1 launched {timed['mel_frontend']} times in the "
              f"timed steps")
     return {"counts": {k: counts[k] + timed[k] for k in KERNELS},
@@ -3911,6 +3941,682 @@ def path_j(tmp, card: str, dev, gen) -> dict:
 
 
 # ----------------------------------------------------------------------
+# path L: the loss and optimizer zoos on the default stack
+# ----------------------------------------------------------------------
+# the eleventh slice's heads and optimizers (the JAX registries' names
+# that the port lacked before it; ShardedAAmSoftmax needs model_parallel)
+L_HEADS = ("AngularPenaltySMLoss", "adasoftmax_v1", "adasoftmax_v2",
+           "ProxyAnchor", "ProxyNCA", "MP", "MMP", "MP_Balance",
+           "MMP_Balance", "MMP_Balance_MTL", "MultiSimilarity",
+           "MultiSimilarity_v2", "MSSoftmax", "MSAmSoftmax", "CircleLoss",
+           "CircleLossV2", "TripletLoss")
+L_OPTIMIZERS = (
+    ("SGDW", {}), ("QHM", {}), ("QHAdam", {}), ("DiffGrad", {}),
+    ("MADGRAD", {}), ("AdaBound", {}), ("AdaMod", {}), ("AdamP", {}),
+    ("SGDP", {}), ("AggMo", {}), ("PID", {"momentum": 0.9}), ("AccSGD", {}),
+    ("SWATS", {}), ("RAdam", {}), ("Lamb", {}), ("LARS", {"momentum": 0.9}),
+    ("NovoGrad", {}), ("Adafactor", {}), ("Yogi", {}), ("Lookahead", {}),
+    ("Lookahead", {"inner": "AdaBelief"}), ("Adahessian", {}),
+    ("Shampoo", {}), ("Apollo", {}), ("A2GradUni", {}))
+# a head's gradient that is zero by construction (MP's logit bias shifts
+# every logit of its two softmaxes): rounding noise on both devices
+L_ZERO_GRAD = {("MP", "b"), ("MP_Balance", "b")}
+# Shampoo's card-vs-CPU check covers the leaves whose axes are all <=
+# this (272 of the 275: the head's W [512, 13,103] and two 1x1 conv
+# kernels with 4,608 inputs are left out)
+L_SHAMPOO_CPU_AXIS = 4096
+# a divergent head's loss on the card against the CPU's (path L2): at
+# step 0, on the same weights, within this relative difference; after the
+# first step, within this factor either way (see path_l2)
+L2_DIVERGE_STEP0_REL = 5e-2
+L2_DIVERGE_AFTER_FACTOR = 4.0
+
+
+def l_head(name: str, h: dict, seed: int = 1):
+    """The head ``name`` at the stack's width, drawn from ``seed`` on the
+    CPU (the config's criterion keys where it names this head)."""
+    import torch
+    from speakerverification_tpu_torch.losses import build_loss
+    from speakerverification_tpu_torch.weights import init_weights_
+    crit = dict(h.get("criterion", {}))
+    kw = {k: v for k, v in crit.items() if k != "name"} \
+        if crit.get("name") == name else {}
+    head = build_loss(name, nOut=int(h["model"]["nOut"]),
+                      nClasses=int(h["nClasses"]), **kw)
+    return init_weights_(head, torch.Generator().manual_seed(seed))
+
+
+def l_stack(h: dict):
+    """The default stack on the card (its weights drawn as flax draws
+    them) and a copy of its trunk's initial state, to reset it from."""
+    from speakerverification_tpu_torch.builder import encoder_from_hparams
+    from speakerverification_tpu_torch.weights import init_weights_
+    import torch
+    model = encoder_from_hparams(h, with_loss=True)
+    init_weights_(model, torch.Generator().manual_seed(7))
+    model = model.to(E_DEVICE)
+    trunk = {k: v.detach().clone() for k, v in model.state_dict().items()
+             if not k.startswith("loss.")}
+    return model, trunk
+
+
+def l_reset(model, trunk: dict, head, tx):
+    """``model`` back to the trunk's initial state with ``head`` on it,
+    and a fresh train state and step for the optimizer ``tx``."""
+    import torch
+    from speakerverification_tpu_torch.training.state import (
+        TrainState,
+        model_state,
+    )
+    from speakerverification_tpu_torch.training.train_step import (
+        make_train_step,
+    )
+    with torch.no_grad():
+        sd = model.state_dict()
+        for k, v in trunk.items():
+            sd[k].copy_(v)
+    model.loss = head.to(E_DEVICE)
+    params, stats = model_state(model)
+    state = TrainState(0, params, stats,
+                       tx.init({k: p.detach() for k, p in params.items()}),
+                       model)
+    return state, make_train_step(model, tx)
+
+
+def _finite(x: float) -> bool:
+    return x == x and abs(x) != float("inf")
+
+
+def _cos(a, b) -> float:
+    a, b = a.detach().double().cpu().ravel(), b.detach().double().cpu().ravel()
+    return float(a @ b / max(float(a.norm() * b.norm()), 1e-300))
+
+
+def l_head_run(name: str, head, emb, label, negidx=None):
+    """``(loss, prec1, grads)`` of ``head`` on the embeddings ``emb``, the
+    gradients with respect to them (``x``) and to each head parameter;
+    TripletLoss through its function of given negatives."""
+    import torch
+    from speakerverification_tpu_torch.losses.common import l2_normalize
+    from speakerverification_tpu_torch.losses.triplet import (
+        triplet_from_indices,
+    )
+    x = emb.detach().clone().requires_grad_(True)
+    if negidx is not None:
+        loss, prec = triplet_from_indices(
+            l2_normalize(x[:, 0], -1), l2_normalize(x[:, 1], -1),
+            negidx.to(x.device), head.margin)
+    else:
+        loss, prec = head(x, label)
+    named = list(head.named_parameters())
+    grads = {}
+    if torch.isfinite(loss):
+        gs = torch.autograd.grad(loss, [x] + [p for _, p in named])
+        grads = dict(zip(["x"] + [n for n, _ in named], gs))
+    return float(loss.detach()), float(prec), grads
+
+
+def path_l1(h: dict, model, wave, label) -> dict:
+    """Each head on the embeddings of one training forward of the trunk,
+    on the card and on the CPU from the same weights: loss and prec1 to
+    1e-5 relative, the gradients (embeddings, head parameters) to cosine
+    0.9999; a loss that is not finite on the CPU must not be on the card
+    either."""
+    import copy
+
+    import torch
+    from speakerverification_tpu_torch.losses.triplet import (
+        MINING_SEED,
+        mine_negatives,
+    )
+    from speakerverification_tpu_torch.losses.common import l2_normalize
+    model.train()
+    reset_counts()
+    with torch.no_grad():
+        emb = model(wave)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    norms = emb.norm(dim=-1)
+    log(f"[L1] embeddings {tuple(emb.shape)} of one training forward: norms "
+        f"{float(norms.min()):.3f}-{float(norms.max()):.3f} (mean "
+        f"{float(norms.mean()):.3f})")
+    rows, ok_all = {}, True
+    for name in L_HEADS:
+        head_cpu = l_head(name, h)
+        head_card = copy.deepcopy(head_cpu).to(E_DEVICE)
+        negidx = None
+        if name == "TripletLoss":
+            a = l2_normalize(emb[:, 0], -1)
+            p = l2_normalize(emb[:, 1], -1)
+            d2 = ((a ** 2).sum(-1)[:, None] + (p ** 2).sum(-1)[None, :]
+                  - 2 * a @ p.T)
+            negidx = mine_negatives(
+                -d2, head_card.hard_rank, head_card.hard_prob,
+                head_card.margin, torch.Generator(device=emb.device)
+                .manual_seed(MINING_SEED))
+        lc, pc, gc = l_head_run(name, head_card, emb, label, negidx)
+        lp, pp, gp = l_head_run(name, head_cpu, emb.cpu(), label.cpu(),
+                                None if negidx is None else negidx.cpu())
+        row = {"loss_card": lc, "loss_cpu": lp, "prec1_card": pc,
+               "prec1_cpu": pp}
+        if _finite(lp):
+            row["loss_rel"] = abs(lc - lp) / max(abs(lp), 1e-30)
+            row["prec1_rel"] = abs(pc - pp) / max(abs(pp), 1e-30)
+            fin = {k: bool(torch.isfinite(g).all()) for k, g in gp.items()}
+            same = all(fin[k] == bool(torch.isfinite(gc[k]).all())
+                       for k in gp)
+            cos = {k: _cos(gc[k], gp[k]) for k in gp
+                   if (name, k) not in L_ZERO_GRAD and fin[k]}
+            row["grad_cos_min"] = min(cos.values(), default=1.0)
+            row["grad_cos_min_at"] = min(cos, key=cos.get, default="")
+            if not all(fin.values()):
+                # a masked exp that overflows: its zero cotangent times
+                # inf is NaN, on both devices alike (and in JAX)
+                row["non_finite_grads"] = sorted(k for k in fin
+                                                 if not fin[k])
+            ok = (same and row["loss_rel"] <= 1e-5
+                  and (pc == pp or row["prec1_rel"] <= 1e-5)
+                  and row["grad_cos_min"] >= 0.9999)
+        else:
+            ok = not _finite(lc)
+            row["non_finite_on_both"] = ok
+        rows[name] = row
+        ok_all &= ok
+        log(f"[L1 {name}] " + json.dumps(row) + (" ok" if ok else " FAIL"))
+    if not ok_all:
+        fail("path L1: a head on the card disagrees with the CPU")
+    return {"counts": counts, "norms": (float(norms.min()),
+                                        float(norms.max())), "heads": rows}
+
+
+def l_head_breaks(model, snapshot: dict, wave, label) -> tuple:
+    """``(card, cpu)``: whether the head's loss or its gradients (with
+    respect to the embeddings and its parameters) are not finite on the
+    forward of ``snapshot`` (a state a step began from), on the card and
+    on the CPU."""
+    import copy
+
+    import torch
+    with torch.no_grad():
+        model.load_state_dict(snapshot)
+        model.train()
+        emb = model(wave)
+    out = []
+    for head, e, lab in ((model.loss, emb, label),
+                         (copy.deepcopy(model.loss).cpu(), emb.cpu(),
+                          label.cpu())):
+        loss, _, grads = l_head_run("", head, e, lab)
+        out.append(not _finite(loss) or not all(
+            bool(torch.isfinite(g).all()) for g in grads.values()))
+    return tuple(out)
+
+
+def l_cpu_first_two(h: dict, model, start: dict, wave, label) -> list:
+    """The loss of the first train step from ``start`` and the loss after
+    it, on the CPU's plain path (the same batch, weights and optimizer);
+    ``model`` is left at ``start``."""
+    import copy
+
+    import torch
+    from speakerverification_tpu_torch.builder import optimizer_from_hparams
+    from speakerverification_tpu_torch.training.state import (
+        TrainState,
+        model_state,
+    )
+    from speakerverification_tpu_torch.training.train_step import (
+        make_train_step,
+    )
+    with torch.no_grad():
+        model.load_state_dict(start)
+    cpu = copy.deepcopy(model).cpu()
+    tx = optimizer_from_hparams(h)
+    params, stats = model_state(cpu)
+    state = TrainState(0, params, stats, tx.init(
+        {k: p.detach() for k, p in params.items()}), cpu)
+    state, m = make_train_step(cpu, tx)(state, wave.cpu(), label.cpu(),
+                                        h["lr"])
+    with torch.no_grad():
+        after, _ = cpu(wave.cpu(), label.cpu())
+    return [float(m["loss"]), float(after)]
+
+
+def path_l2(h: dict, model, trunk, wave, label, card: str) -> dict:
+    """Each head on the default stack's train step (AdaBelief), 10 steps
+    on one fixed batch: the loss stays finite and falls (the mean of the
+    last three below the loss at step 0, of the initial weights); the
+    step timed
+    (CUDA events, steps 2-10), K1 counted (once per step). A loss that
+    turns non-finite is held to the CPU: on the forward of the step that
+    broke (that one, or the one before where its gradient was not
+    finite), the head's loss or gradient must not be finite on the CPU
+    either (a head that overflows in fp32, as in JAX); the run stops
+    there for that head, and the loss must have fallen before it where
+    two steps ran. A loss that more than doubles in its first step
+    diverges (heads that diverge on this stack at the yaml's rate, as in
+    JAX: MP's unnormalized queries, CircleLoss on raw embeddings; the
+    loss zoo's CPU tests show it in JAX): it is not held to fall, but to
+    the CPU's first step from the same state. The CPU's loss must more
+    than double too; the card's loss at step 0 must be within
+    ``L2_DIVERGE_STEP0_REL`` of the CPU's (on the same weights these heads
+    exponentiate the trunk's card-vs-CPU rounding: CircleLoss's logits are
+    gamma * sim^2 of raw embeddings; measured 1.1e-3 for MP, 2.2e-2 for
+    CircleLoss); and the card's loss after the first step within a factor
+    ``L2_DIVERGE_AFTER_FACTOR`` of the CPU's (measured 1.38 and 3.03:
+    AdaBelief's first step moves every weight by about +-lr, so gradients
+    that differ a little move the weights apart; a card step that did not
+    move the weights would leave its loss 4.6 and 37 times below the
+    CPU's)."""
+    import torch
+    from speakerverification_tpu_torch.builder import optimizer_from_hparams
+    counts = dict.fromkeys(KERNELS, 0)
+    out, cpu_rise = {}, {}
+    for name in L_HEADS:
+        state, step = l_reset(model, trunk, l_head(name, h),
+                              optimizer_from_hparams(h))
+        losses, ms, overflow, snaps = [], [], None, []
+        reset_counts()
+        for i in range(10):
+            snaps = snaps[-1:] + [{k: v.detach().clone()
+                                   for k, v in model.state_dict().items()}]
+            if i == 0:
+                start = snaps[0]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            state, m = step(state, wave, label, h["lr"])
+            ev[1].record()
+            torch.cuda.synchronize()
+            loss = float(m["loss"])
+            ms.append(ev[0].elapsed_time(ev[1]))
+            if not _finite(loss):
+                # the step that broke: this one, or the one before if its
+                # gradient already was not finite (then this step began
+                # from non-finite weights)
+                at = i if all(bool(torch.isfinite(v).all()) for v in
+                              snaps[-1].values()
+                              if v.is_floating_point()) else i - 1
+                c = read_counts()
+                broke = l_head_breaks(model, snaps[at - i - 1], wave, label)
+                if broke != (True, True):
+                    fail(f"path L2 {name}: loss {loss} at step {i}; the head "
+                         f"on step {at}'s forward breaks on (card, CPU) "
+                         f"{broke}")
+                overflow = at
+                break
+            losses.append(loss)
+        if overflow is None:
+            c = read_counts()
+        for k, v in read_counts().items():    # the check's forward too
+            counts[k] += v
+        n_steps = len(ms)
+        # the mean of the last three (of up to ten) against step 0's
+        # loss: the adaptive heads' loss swings by an order of magnitude
+        # from step to step, and a mined head's is 0 at a step that mines
+        # no pair (MultiSimilarity_v2 averages over the rows with a mined
+        # pair, so its other steps stay near 0.4: a 0 among the first
+        # three can put their mean below the last three's)
+        k = min(3, len(losses) // 2)
+        falls = k > 0 and sum(losses[-k:]) / k < losses[0]
+        row = {"losses": [round(x, 5) for x in losses],
+               "ms_per_step": sum(ms[1:]) / max(len(ms) - 1, 1),
+               "k1_launches": c["mel_frontend"], "steps": n_steps}
+        # a first step that more than doubles the loss is a divergence,
+        # held to the CPU's first step from the same state (once per
+        # head class: MP_Balance is MP)
+        rises_on_cpu = False
+        if overflow is None and losses[1] > 2 * losses[0]:
+            cls = type(model.loss)
+            if cls not in cpu_rise:
+                cpu_rise[cls] = l_cpu_first_two(h, model, start, wave,
+                                                label)
+            cpu0, cpu1 = cpu_rise[cls]
+            row["cpu_first_two"] = [cpu0, cpu1]
+            row["step0_rel"] = abs(losses[0] - cpu0) / abs(cpu0)
+            row["after_ratio"] = losses[1] / cpu1
+            rises_on_cpu = (
+                cpu1 > 2 * cpu0 and row["step0_rel"] <= L2_DIVERGE_STEP0_REL
+                and 1 / L2_DIVERGE_AFTER_FACTOR <= row["after_ratio"]
+                <= L2_DIVERGE_AFTER_FACTOR)
+            falls = False
+        ok = c["mel_frontend"] == n_steps and (falls or rises_on_cpu or (
+            overflow is not None and overflow < 2))
+        if overflow is not None:
+            row["head_breaks_at_step"] = overflow
+        out[name] = row
+        log(f"[L2 {name}] " + json.dumps(row)
+            + (" (the head's loss or gradient not finite there on the "
+               "CPU too)" if overflow is not None else "")
+            + (" (diverges: the first step more than doubles the loss, "
+               "on the CPU too, within the bars of the CPU's)"
+               if rises_on_cpu else "") + (" ok" if ok else " FAIL") + f" ({card})")
+        if not ok:
+            fail(f"path L2 {name}: the loss did not fall or K1 was not "
+                 f"launched once per step ({row})")
+    return {"counts": counts, "heads": out}
+
+
+def l_grads(model, trunk, h: dict) -> list:
+    """Three gradient trees of the default stack (ARmSoftmax) from full-
+    width backward passes at its initial state, 32 x 2 crops each."""
+    import torch
+    from speakerverification_tpu_torch.optim import build_optimizer
+    state, _ = l_reset(model, trunk, l_head("ARmSoftmax", h),
+                       build_optimizer("sgd", h["lr"]))
+    grads = []
+    for i in range(3):
+        wave, label = seeded_batch(90 + i, 32, 2, h)
+        grads.append({k: g.detach() for k, g in loss_grads(
+            state, torch.from_numpy(wave).to(E_DEVICE),
+            torch.from_numpy(label).to(E_DEVICE)).items()})
+    return state, grads
+
+
+def l_updates(tx, params: dict, grads: list, n: int, keys=None,
+              timed: bool = False):
+    """``n`` updates of ``tx`` from ``params`` (copied) with ``grads``,
+    over ``keys`` only where given; the final params and, ``timed``,
+    each update's device ms (CUDA events)."""
+    import torch
+    from speakerverification_tpu_torch.optim import apply_updates
+    keys = list(params) if keys is None else keys
+    p = {k: params[k].detach().clone() for k in keys}
+    s = tx.init(p)
+    ms = []
+    for i in range(n):
+        g = {k: grads[i][k] for k in keys}
+        if timed:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        u, s = tx.update(g, s, p)
+        apply_updates(p, u)
+        if timed:
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+    return p, ms
+
+
+def path_l3(h: dict, model, trunk, card: str) -> dict:
+    """Each new optimizer (and Lookahead over AdaBelief): three updates on
+    the card and on the CPU from the same parameters with the same three
+    gradient trees, every leaf within 1e-6 of its largest value (the CPU
+    tests' bar) but those whose gradient is zero by construction
+    (``ZERO_GRAD``: rounding noise, which Adafactor's relative step
+    scales up to a full step; 1e-5 there). Shampoo: one update, on the
+    CPU over the leaves whose axes are all <= ``L_SHAMPOO_CPU_AXIS`` (in
+    a thread, beside the card's); a leaf within 1e-5, or else no more
+    than twice as far as the CPU's from a float64 run of that leaf (on the
+    card): where a preconditioner is rank-deficient (a 1-D leaf, a Dense
+    weight's gradient of rank <= 64) its inverse root scales fp32
+    rounding by up to eps^(-1/order). Then five train steps on the card
+    (none for Shampoo: one update takes ~38 s, almost all one SVD of the
+    13,103² class-axis preconditioner), the loss and the parameters
+    finite, the step and ``tx.update`` timed (CUDA events)."""
+    import concurrent.futures
+
+    import torch
+    from speakerverification_tpu_torch.optim import build_optimizer
+    from speakerverification_tpu_torch.optim import to_flax
+    base, grads = l_grads(model, trunk, h)
+    params = {k: p.detach().clone() for k, p in base.params.items()}
+    params_cpu = {k: p.cpu() for k, p in params.items()}
+    grads_cpu = [{k: g.cpu() for k, g in gr.items()} for gr in grads]
+    wave, label = seeded_batch(95, 32, 2, h)
+    wave = torch.from_numpy(wave).to(E_DEVICE)
+    label = torch.from_numpy(label).to(E_DEVICE)
+    counts = dict.fromkeys(KERNELS, 0)
+    out = {}
+    wd = float(h["optimizer"].get("weight_decay", 0.0))
+    for name, kw in L_OPTIMIZERS:
+        label_name = name + ("" if not kw.get("inner") else
+                             f" over {kw['inner']}")
+        tx = build_optimizer(name, h["lr"], weight_decay=wd, **kw)
+        t0 = time.time()
+        p64 = None
+        bar = 1e-5 if name == "Shampoo" else 1e-6
+        if name == "Shampoo":
+            n = 1
+            keys = [k for k in params if max(to_flax(
+                k, params[k]).shape, default=0) <= L_SHAMPOO_CPU_AXIS]
+            with concurrent.futures.ThreadPoolExecutor(1) as pool:
+                cpu_job = pool.submit(l_updates, tx, params_cpu, grads_cpu,
+                                      n, keys)
+                p_card, upd_ms = l_updates(tx, params, grads, n, timed=True)
+                t1 = time.time()
+                p_cpu, _ = cpu_job.result()
+            # the float64 run, of the leaves that miss the bar only (each
+            # leaf's update is its own)
+            miss = [k for k in keys if float(
+                (p_card[k].cpu() - p_cpu[k]).abs().max()) > bar * max(
+                float(p_cpu[k].abs().max()), 1e-30)]
+            p64, _ = l_updates(tx, {k: params[k].double() for k in miss},
+                               [{k: g[k].double() for k in miss}
+                                for g in grads], n)
+        else:
+            n = 3
+            p_card, upd_ms = l_updates(tx, params, grads, n, timed=True)
+            t1 = time.time()
+            p_cpu, _ = l_updates(tx, params_cpu, grads_cpu, n)
+        t2 = time.time()
+        worst, worst_at, zero_worst, refereed = 0.0, "", 0.0, []
+        for k, ref in p_cpu.items():
+            got = p_card[k].cpu()
+            scale = max(float(ref.abs().max()), 1e-30)
+            err = float((got - ref).abs().max()) / scale
+            if p64 is not None and err > bar:
+                r64 = p64[k].cpu()
+                d_card = float((got.double() - r64).abs().max())
+                d_cpu = float((ref.double() - r64).abs().max())
+                refereed.append((d_card / max(d_cpu, 1e-300), err, k))
+                if d_card <= 2 * d_cpu:
+                    continue
+            if k.endswith(ZERO_GRAD) and p64 is None:
+                zero_worst = max(zero_worst, err)
+            elif err > worst:
+                worst, worst_at = err, k
+        # five train steps on the card (Shampoo runs its one update only)
+        state, step = l_reset(model, trunk, l_head("ARmSoftmax", h), tx)
+        reset_counts()
+        steps = 0 if name == "Shampoo" else 5
+        ms, losses = [], []
+        for i in range(steps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            state, m = step(state, wave, label, h["lr"])
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+            losses.append(float(m["loss"]))
+        c = read_counts()
+        for k in KERNELS:
+            counts[k] += c[k]
+        update_ms = sum(upd_ms[1:]) / (len(upd_ms) - 1) \
+            if len(upd_ms) > 1 else upd_ms[0]     # the first picks plans
+        step_ms = sum(ms[1:]) / (len(ms) - 1) if ms else None
+        finite = all(_finite(x) for x in losses) and all(
+            bool(torch.isfinite(p).all()) for p in p_card.values())
+        ok = (worst <= bar and zero_worst <= 1e-5 and finite
+              and c["mel_frontend"] == steps)
+        row = {"updates": n, "leaves_compared": len(p_cpu),
+               "max_rel_err": worst, "bar": bar, "at": worst_at,
+               "zero_grad_max_rel_err": zero_worst,
+               "update_ms": update_ms, "step_ms": step_ms,
+               "update_share": update_ms / step_ms if ms else None,
+               "losses": [round(x, 5) for x in losses],
+               "wall_s": {"card_updates": round(t1 - t0, 1),
+                          "cpu_and_referee": round(t2 - t1, 1),
+                          "steps": round(time.time() - t2, 1)}}
+        if p64 is not None:
+            row["refereed_leaves"] = len(refereed)
+            row["refereed_max_ratio"] = max((r[0] for r in refereed),
+                                            default=0.0)
+            for ratio, err, k in sorted(refereed, reverse=True)[:5]:
+                log(f"[L3 {label_name} leaf] {k}: card vs CPU {err:.3e} of "
+                    f"its largest; from float64 the card is {ratio:.3f}x as "
+                    "far as the CPU")
+        out[label_name] = row
+        log(f"[L3 {label_name}] " + json.dumps(row) + (" ok" if ok else
+                                                       " FAIL") + f" ({card})")
+        if not ok:
+            fail(f"path L3 {label_name}: card and CPU disagree, or the "
+                 f"loss is not finite ({row})")
+    return {"counts": counts, "optimizers": out}
+
+
+def path_l4(h: dict, model, trunk, card: str) -> dict:
+    """One step of ``make_adahessian_loss_update`` (gradients and the
+    Hutchinson trace by double backward) over the default stack at 32 x 2
+    crops, against the plain Adahessian step (``|grad|`` for the
+    curvature): time (CUDA events), peak memory, a finite loss."""
+    import torch
+    from torch.func import functional_call
+    from speakerverification_tpu_torch.optim import build_optimizer
+    from speakerverification_tpu_torch.optim.second_order import (
+        make_adahessian_loss_update,
+    )
+    from speakerverification_tpu_torch.training.train_step import (
+        timed_conv_plans,
+    )
+    tx = build_optimizer("Adahessian", h["lr"])
+    wave, label = seeded_batch(96, 32, 2, h)
+    wave = torch.from_numpy(wave).to(E_DEVICE)
+    label = torch.from_numpy(label).to(E_DEVICE)
+    out = {}
+    reset_counts()
+    for kind in ("plain", "true"):
+        state, step = l_reset(model, trunk, l_head("ARmSoftmax", h), tx)
+        buffers = dict(model.named_buffers())
+
+        def loss_fn(p):
+            loss, _ = functional_call(model, {**p, **buffers},
+                                      (wave, label))
+            return loss.float()
+
+        true_step = make_adahessian_loss_update(loss_fn, tx)
+        gen = torch.Generator(device=E_DEVICE).manual_seed(0)
+        box = {"state": state}
+
+        def one():
+            if kind == "plain":
+                box["state"], m = step(box["state"], wave, label, h["lr"])
+                return float(m["loss"])
+            st = box["state"]
+            with timed_conv_plans(wave.device):
+                new, st.opt_state, loss = true_step(st.params, st.opt_state,
+                                                    gen)
+            with torch.no_grad():
+                for k, p in st.params.items():
+                    p.copy_(new[k])
+            return float(loss)
+        model.train()
+        one()                       # the first call picks cuDNN's plans
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        loss = one()
+        ev[1].record()
+        torch.cuda.synchronize()
+        out[kind] = {"ms": ev[0].elapsed_time(ev[1]),
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "loss": loss}
+        if not (loss == loss and abs(loss) != float("inf")):
+            fail(f"path L4 {kind}: loss not finite ({loss})")
+    counts = read_counts()
+    log(f"[L4] Adahessian at 32 x 2 crops, the plain step (|grad|) "
+        f"{out['plain']['ms']:.2f} ms, {out['plain']['peak_gib']:.2f} GiB; "
+        f"the true second-order step (double backward) "
+        f"{out['true']['ms']:.2f} ms, {out['true']['peak_gib']:.2f} GiB; "
+        f"losses {out['plain']['loss']:.4f}, {out['true']['loss']:.4f}; "
+        f"launches {counts} ({card})")
+    if counts["mel_frontend"] != 4:
+        fail(f"path L4: K1 launched {counts['mel_frontend']} times in 4 steps")
+    return {"counts": counts, **out}
+
+
+def path_l5(tmp, h: dict, card: str) -> dict:
+    """``--do_train`` (one epoch) with a summed zoo head and Lamb through
+    the CLI, then its ``last_state`` read back into a fresh train state:
+    the optimizer state written again equals the file's leaf for leaf;
+    then ``--do_infer --eval`` (path E4's checks). The head is
+    MSAmSoftmax (``ARmSoftmax_0`` by flax's auto-name): MMP_Balance_MTL's
+    epoch loss is NaN on this stack (its MMP term overflows fp32 at the
+    embedding norms of 16-72, ROADMAP C.13, as in JAX), so its run keeps
+    no best checkpoint to evaluate."""
+    import numpy as np
+    import torch
+    from speakerverification_tpu_torch import checkpoint as codec
+    from speakerverification_tpu_torch.training import checkpoint as tckpt
+    head = "MSAmSoftmax"
+    hl = {**h, "criterion": {"name": head},
+          "optimizer": {**h["optimizer"], "name": "Lamb"}}
+    e = path_e4(tmp, card, hl, tag="L5", epochs=1)
+    path = (tmp / "save" / hl["model"]["name"] / head / "model"
+            / "last_state.msgpack")
+    raw = codec.load_checkpoint(path)
+    # the trainer sizes the head by the manifest's speakers
+    n_classes = int(np.asarray(raw["params"]["loss"]["ARmSoftmax_0"]["W"])
+                    .shape[1])
+    fresh, _ = train_state({**hl, "nClasses": n_classes}, E_DEVICE)
+    tckpt.load_checkpoint(path, fresh)
+    again = codec._state_dict(tckpt.state_to_jax(fresh)["opt_state"])
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            out = {}
+            for k, v in tree.items():
+                out.update(leaves(v, f"{prefix}/{k}"))
+            return out
+        return {prefix: np.asarray(tree.float() if isinstance(
+            tree, torch.Tensor) and tree.dtype == torch.bfloat16 else tree)}
+    want, got = leaves(raw["opt_state"]), leaves(again)
+    same = set(want) == set(got) and all(
+        want[k].dtype == got[k].dtype and np.array_equal(want[k], got[k])
+        for k in want)
+    count = int(np.asarray(raw["opt_state"]["inner_state"]["count"]))
+    log(f"[L5] last_state read back into a fresh state: {len(want)} "
+        f"optimizer-state leaves, Lamb's count {count} (steps {e['steps']}), "
+        f"written again {'equal' if same else 'DIFFERENT'}")
+    if not same or fresh.step != e["steps"] or count != e["steps"]:
+        fail("path L5: the optimizer state read back differs from the "
+             "checkpoint's")
+    return e
+
+
+def path_l(tmp, card: str, h: dict = RAW3_TRAIN_HPARAMS) -> dict:
+    """The eleventh slice (L1-L5) on the default stack at path E's width:
+    the 17 new heads against the CPU (L1) and in the train step (L2), the
+    24 new optimizers and Lookahead over AdaBelief against the CPU and in
+    the step (L3), Adahessian's true second-order step (L4), the CLI with
+    MSAmSoftmax and Lamb (L5)."""
+    import torch
+    walls = {}
+
+    def timed_phase(phase, fn, *args, **kwargs):
+        t0 = time.time()
+        out = fn(*args, **kwargs)
+        walls[phase] = round(time.time() - t0, 1)
+        return out
+
+    model, trunk = timed_phase("setup", l_stack, h)
+    wave, label = seeded_batch(88, 32, 2, h)
+    wave = torch.from_numpy(wave).to(E_DEVICE)
+    label = torch.from_numpy(label).to(E_DEVICE)
+    l1 = timed_phase("L1", path_l1, h, model, wave, label)
+    l2 = timed_phase("L2", path_l2, h, model, trunk, wave, label, card)
+    l4 = timed_phase("L4", path_l4, h, model, trunk, card)
+    l5 = timed_phase("L5", path_l5, tmp, h, card)
+    # last: Shampoo's one update holds ~4 GiB of 13,103² matrices
+    l3 = timed_phase("L3", path_l3, h, model, trunk, card)
+    counts = {k: l1["counts"][k] + l2["counts"][k] + l3["counts"][k]
+              + l4["counts"][k] + l5["counts"][k] for k in KERNELS}
+    log(f"[L] launches over L1-L5: {counts}; wall by phase (s) {walls}, "
+        f"{sum(walls.values()):.1f} s in all")
+    if counts["res2net_cascade"] or counts["quant_matmul"]:
+        fail(f"path L: unexpected launches {counts}")
+    return {"counts": counts, "l1": l1, "l2": l2, "l3": l3, "l4": l4}
+
+
+# ----------------------------------------------------------------------
 # F2's fp32 convolution gradient: remedies side by side (--f2-conv)
 # ----------------------------------------------------------------------
 # each in a process of its own: cuDNN's algorithm cache, its workspace
@@ -4073,6 +4779,29 @@ def zoo() -> None:
         f"{out['counts']} ({card})")
 
 
+def train_zoo() -> None:
+    """Path L alone, after the kernels' build: the quick check of the
+    eleventh slice."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_kernels()
+    tmp = Path(tempfile.mkdtemp(prefix="svtorch_train_zoo_"))
+    try:
+        out = path_l(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[L] passed in {time.time() - T_START:.1f} s; launches "
+        f"{out['counts']} ({card})")
+
+
 def data_path() -> None:
     """Path H alone, path G's corpora written first, after the kernels'
     build: the quick check of the data path."""
@@ -4112,6 +4841,10 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     t_start = time.time()
+    marks = [("start", t_start)]
+
+    def mark(name):
+        marks.append((name, time.time()))
 
     build_kernels()
     k1 = check_mel_kernel(dev, gen)
@@ -4120,6 +4853,7 @@ def main() -> None:
     per_forward_k3(k3)
     for r in k1 + k2 + k3:
         log("[timing] " + json.dumps({**r, "card": card}))
+    mark("kernels")
 
     a = path_a(card)
     b = path_b()
@@ -4145,41 +4879,57 @@ def main() -> None:
     profile("B", b["engine"], b["waves"])
     profile("C", c["engine"], c["waves"])
     path_c_bf16(c, card)
+    mark("A-C")
     tmp = Path(tempfile.mkdtemp(prefix="svtorch_banks_"))
     try:
         d = path_d(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    mark("D")
     tmp = Path(tempfile.mkdtemp(prefix="svtorch_train_"))
     try:
         e = path_e(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    mark("E")
     tmp = Path(tempfile.mkdtemp(prefix="svtorch_rawnet2_"))
     try:
         f = path_f(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    mark("F")
     tmp = Path(tempfile.mkdtemp(prefix="svtorch_augment_"))
     try:
         g = path_g(tmp, card)
+        mark("G")
         h = path_h(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    mark("H")
     tmp = Path(tempfile.mkdtemp(prefix="svtorch_conformer_"))
     try:
         i = path_i(tmp, card, dev, gen)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    mark("I")
     tmp = Path(tempfile.mkdtemp(prefix="svtorch_zoo_"))
     try:
         j = path_j(tmp, card, dev, gen)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    mark("J")
+    tmp = Path(tempfile.mkdtemp(prefix="svtorch_train_zoo_"))
+    try:
+        l_ = path_l(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    mark("L")
+    log("[wall by path] " + json.dumps(
+        {n: round(t - t0, 1) for (_, t0), (n, t) in zip(marks, marks[1:])}))
     paths = {"A": a["counts"], "B": b["counts"], "C": c["counts"],
              "D": d["counts"], "E": e["counts"], "F": f["counts"],
              "G": g["counts"], "H": h["counts"], "I": i["counts"],
-             "J": j["counts"]}
+             "J": j["counts"], "L": l_["counts"]}
     by_path = {k: {p: counts[k] for p, counts in paths.items()}
                for k in KERNELS}
 
@@ -4254,5 +5004,7 @@ if __name__ == "__main__":
         conformer()
     elif sys.argv[1:2] == ["--zoo"]:
         zoo()
+    elif sys.argv[1:2] == ["--train-zoo"]:
+        train_zoo()
     else:
         main()

@@ -6,7 +6,14 @@ Each head is called as ``head(x, label) -> (loss, prec1)`` and carries
 ``AmSoftmax``, ``AAmSoftmax`` and ``ARmSoftmax``; the metric heads
 ``AngularProto``, ``Prototypical``, ``GE2ELoss``, ``GE2ELossV2`` and
 ``GE2ELoss_fusion``; their sums ``SoftmaxAngularProto``,
-``AmSoftmaxProto``, ``AAmSoftmaxProto`` and ``AAmSoftmaxAP``.
+``AmSoftmaxProto``, ``AAmSoftmaxProto`` and ``AAmSoftmaxAP``;
+``AngularPenaltySMLoss``; the adaptive softmax heads
+``adasoftmax_v1``/``_v2``; the proxy heads ``ProxyAnchor``,
+``ProxyNCA``, ``MP``, ``MMP`` (and ``*_Balance``), ``MMP_Balance_MTL``;
+the pair heads ``MultiSimilarity``, ``MultiSimilarity_v2``,
+``MSSoftmax``, ``MSAmSoftmax``, ``CircleLoss``, ``CircleLossV2``; and
+``TripletLoss``. The JAX package's ``ShardedAAmSoftmax`` (the
+class-sharded head of ``model_parallel > 1``) is not ported.
 """
 
 import inspect
@@ -17,6 +24,7 @@ from speakerverification_tpu_torch.losses.margin import (  # noqa: F401
     Softmax,
 )
 from speakerverification_tpu_torch.losses.margin_extra import (  # noqa: F401
+    AngularPenaltySMLoss,
     ARmSoftmax,
 )
 from speakerverification_tpu_torch.losses.proto import (  # noqa: F401
@@ -32,6 +40,10 @@ from speakerverification_tpu_torch.losses.combined import (  # noqa: F401
     AmSoftmaxProto,
     SoftmaxAngularProto,
 )
+import speakerverification_tpu_torch.losses.adaptive  # noqa: F401
+import speakerverification_tpu_torch.losses.proxy  # noqa: F401
+import speakerverification_tpu_torch.losses.similarity  # noqa: F401
+import speakerverification_tpu_torch.losses.triplet  # noqa: F401
 from speakerverification_tpu_torch.registry import LOSSES
 
 __all__ = ["LOSSES", "build_loss"]

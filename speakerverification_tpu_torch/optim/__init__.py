@@ -12,6 +12,11 @@ hold what the JAX optimizer's state holds:
 * ``{}`` for a stateless transformation;
 * a :class:`ParamTree` where optax keeps a tree shaped like the params
   (moments, EMA); ``training/checkpoint.py`` writes it in flax layout;
+* a :class:`LeafTree` where the JAX optimizer keeps a tree keyed by
+  parameter whose leaves have other shapes (Adafactor's factored
+  moments, Shampoo's per-axis matrices, per-leaf scalars and flags):
+  its leaves are already in flax layout and are written as they are,
+  at each parameter's flax path;
 * a Python ``int`` for a step count (int32 in the file) and a
   ``numpy.float32`` for the learning rate.
 
@@ -20,6 +25,17 @@ hold what the JAX optimizer's state holds:
 {"learning_rate"}, "hyperparams_states": {}, "inner_state"}``, the inner
 optimizer rebuilt from the state's learning rate at every update, every
 other argument fixed. ``ema_decay > 0`` chains :func:`track_ema` after it.
+Extra keyword arguments of ``update`` (Adahessian's ``hessian=``) reach
+the transformations that take them, as optax's ``*ExtraArgs`` do;
+Lookahead, a plain transformation in JAX, takes none and hands none to
+its inner optimizer.
+
+Where an optimizer's arithmetic depends on the layout (AdamP, SGDP,
+Adafactor, Shampoo), each leaf is viewed in flax layout
+(:func:`to_flax`, the weight bridge's axis rules), and where it runs
+through the leaves in order (SWATS), the order is JAX's: the sorted
+flax paths (:func:`flax_order`). The optimizers beyond adam and sgd
+live in ``optim/custom.py`` and ``optim/second_order.py``.
 
 Weight decay is coupled (``g + wd·p`` before the moments, torch's
 ``Adam(weight_decay=…)``) where the reference couples it.
@@ -35,10 +51,12 @@ import numpy as np
 import torch
 
 from speakerverification_tpu_torch.registry import OPTIMIZERS
+from speakerverification_tpu_torch.weights import flax_axes, flax_path
 
-__all__ = ["GradientTransformation", "ParamTree", "OPTIMIZERS", "chain",
-           "build_optimizer", "set_learning_rate", "track_ema",
-           "apply_updates", "adam", "sgd",
+__all__ = ["GradientTransformation", "ParamTree", "LeafTree", "OPTIMIZERS",
+           "chain", "build_optimizer", "set_learning_rate", "track_ema",
+           "apply_updates", "adam", "sgd", "yogi", "lookahead",
+           "to_flax", "from_flax", "flax_order",
            "build_scheduler", "ReduceOnPlateau", "EarlyStopping"]
 
 
@@ -50,6 +68,33 @@ class GradientTransformation(NamedTuple):
 class ParamTree(dict):
     """Optimizer state shaped like the parameters: parameter name →
     tensor, in the port's layout."""
+
+
+class LeafTree(dict):
+    """Optimizer state keyed by parameter name whose leaves are not
+    shaped like the parameter (a tensor of another shape, a 0-d tensor,
+    or a tuple of tensors), in flax layout."""
+
+
+def to_flax(key: str, t: torch.Tensor) -> torch.Tensor:
+    """The parameter ``key``'s tensor (or a tensor shaped like it) viewed
+    in flax layout."""
+    return t.permute(flax_axes(key, t.dim()))
+
+
+def from_flax(key: str, t: torch.Tensor) -> torch.Tensor:
+    """:func:`to_flax`'s inverse, contiguous."""
+    perm = flax_axes(key, t.dim())
+    inv = [0] * len(perm)
+    for i, a in enumerate(perm):
+        inv[a] = i
+    return t.permute(inv).contiguous()
+
+
+def flax_order(params: dict) -> list:
+    """The keys of ``params`` in JAX's flatten order of the flax tree
+    (its paths sorted)."""
+    return sorted(params, key=lambda k: flax_path(k, params[k].dim()))
 
 
 def zeros_like(params: dict) -> ParamTree:
@@ -75,14 +120,24 @@ def identity() -> GradientTransformation:
                                   lambda u, state, params=None: (u, state))
 
 
+def _update(tx: GradientTransformation, updates, state, params, extra):
+    """``tx.update`` with those of the ``extra`` keyword arguments it
+    takes."""
+    if extra:
+        sig = inspect.signature(tx.update).parameters
+        if not any(p.kind is p.VAR_KEYWORD for p in sig.values()):
+            extra = {k: v for k, v in extra.items() if k in sig}
+    return tx.update(updates, state, params, **extra)
+
+
 def chain(*txs: GradientTransformation) -> GradientTransformation:
     def init(params):
         return tuple(tx.init(params) for tx in txs)
 
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, **extra):
         new = []
         for tx, s in zip(txs, state):
-            updates, s = tx.update(updates, s, params)
+            updates, s = _update(tx, updates, s, params, extra)
             new.append(s)
         return updates, tuple(new)
 
@@ -204,7 +259,93 @@ def sgd(learning_rate, weight_decay=0.0, momentum=0.0, nesterov=False, **kw):
                  scale(-_f32(learning_rate)))
 
 
+def scale_by_yogi(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-3,
+                  initial_accumulator_value: float = 1e-6
+                  ) -> GradientTransformation:
+    """``optax.scale_by_yogi``: moments seeded at 1e-6, the second one
+    moved by ``(1 − b2)·sign(v − g²)·g²``."""
+    def init(params):
+        return {"count": 0,
+                "mu": ParamTree({k: torch.full_like(
+                    p, initial_accumulator_value) for k, p in params.items()}),
+                "nu": ParamTree({k: torch.full_like(
+                    p, initial_accumulator_value) for k, p in params.items()})}
+
+    def update(updates, state, params=None):
+        keys = list(updates)
+        g = [updates[k] for k in keys]
+        mu = torch._foreach_add(torch._foreach_mul(g, 1 - b1),
+                                torch._foreach_mul(
+                                    [state["mu"][k] for k in keys], b1))
+        v = [state["nu"][k] for k in keys]
+        g2 = torch._foreach_mul(g, g)
+        nu = torch._foreach_sub(v, torch._foreach_mul(torch._foreach_mul(
+            torch._foreach_sign(torch._foreach_sub(v, g2)), 1 - b2), g2))
+        count = state["count"] + 1
+        bc1 = _f32(1 - np.float32(_pow(b1, count)))
+        bc2 = _f32(1 - np.float32(_pow(b2, count)))
+        out = torch._foreach_div(
+            torch._foreach_div(mu, bc1), torch._foreach_add(
+                torch._foreach_sqrt(torch._foreach_div(nu, bc2)), eps))
+        return dict(zip(keys, out)), {
+            "count": count, "mu": ParamTree(zip(keys, mu)),
+            "nu": ParamTree(zip(keys, nu))}
+
+    return GradientTransformation(init, update)
+
+
+@OPTIMIZERS.register("Yogi")
+def yogi(learning_rate, weight_decay=0.0, b1=0.9, b2=0.999, eps=1e-3, **kw):
+    return chain(_l2(weight_decay), scale_by_yogi(b1, b2, eps),
+                 scale(-_f32(learning_rate)))
+
+
+def _lookahead(inner: GradientTransformation, k: int,
+               alpha: float) -> GradientTransformation:
+    """Lookahead with the slow weights in its own state (``{"inner",
+    "slow", "counter", "has_slow"}``, JAX's ``LookaheadState``): the sync
+    runs when the counter is 0, the first step included (where it seeds
+    the slow weights from the fast ones), as ``alpha·fast + (1 −
+    alpha)·slow``, and the slow weights become the result."""
+    def init(params):
+        return {"inner": inner.init(params), "slow": zeros_like(params),
+                "counter": 0, "has_slow": False}
+
+    def update(updates, state, params=None):
+        if params is None:
+            raise ValueError("Lookahead requires params in update")
+        u, inner_state = inner.update(updates, state["inner"], params)
+        keys = list(params)
+        p = [params[k].detach() for k in keys]
+        fast = torch._foreach_add(p, [u[k] for k in keys])
+        slow = ([state["slow"][k] for k in keys] if state["has_slow"]
+                else fast)
+        if state["counter"] == 0:
+            out = torch._foreach_add(torch._foreach_mul(fast, alpha),
+                                     torch._foreach_mul(slow, 1 - alpha))
+            slow = out
+        else:
+            out = fast
+        return dict(zip(keys, torch._foreach_sub(out, p))), {
+            "inner": inner_state,
+            "slow": ParamTree(zip(keys, slow)),
+            "counter": (state["counter"] + 1) % k, "has_slow": True}
+
+    return GradientTransformation(init, update)
+
+
+@OPTIMIZERS.register("Lookahead")
+def lookahead(learning_rate, weight_decay=0.0, k=5, alpha=0.5,
+              inner: str = "adam", inner_kwargs=None, **kw):
+    """Lookahead around the optimizer ``inner`` (built with
+    ``inner_kwargs``, a named key so that a config reaches it)."""
+    fast = OPTIMIZERS.get(inner)(learning_rate, weight_decay,
+                                 **dict(inner_kwargs or {}))
+    return _lookahead(fast, k=int(k), alpha=float(alpha))
+
+
 from speakerverification_tpu_torch.optim import custom  # noqa: E402,F401
+from speakerverification_tpu_torch.optim import second_order  # noqa: E402,F401
 from speakerverification_tpu_torch.optim.schedulers import (  # noqa: E402
     EarlyStopping,
     ReduceOnPlateau,
@@ -221,10 +362,10 @@ def _inject(factory: Callable, learning_rate: float,
                 "inner_state": factory(learning_rate=lr, **static)
                 .init(params)}
 
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, **extra):
         lr = state["hyperparams"]["learning_rate"]
-        updates, inner = factory(learning_rate=lr, **static).update(
-            updates, state["inner_state"], params)
+        updates, inner = _update(factory(learning_rate=lr, **static),
+                                 updates, state["inner_state"], params, extra)
         return updates, {**state, "count": state["count"] + 1,
                          "inner_state": inner}
 

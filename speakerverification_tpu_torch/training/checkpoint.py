@@ -8,9 +8,11 @@ written as the JAX trainer writes its ``TrainState``: flax msgpack
 "params", "batch_stats", "opt_state"}`` in flax layout
 (``weights.params_to_jax``; the loss head under ``params["loss"]``), the
 optimizer state as optax's serializes (``optim``: moments and EMA in
-flax layout, counts int32, the learning rate fp32), beside a JSON
-sidecar. The JAX package's ``load_checkpoint`` restores such a file as
-its full train state, and the port restores the JAX package's.
+flax layout, counts int32, the learning rate fp32, flags bool; a
+``LeafTree``'s leaves, already in flax layout, at each parameter's flax
+path, a tuple of them with index keys), beside a JSON sidecar. The JAX
+package's ``load_checkpoint`` restores such a file as its full train
+state, and the port restores the JAX package's.
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ import numpy as np
 import torch
 
 from speakerverification_tpu_torch import checkpoint as codec
-from speakerverification_tpu_torch.optim import ParamTree
+from speakerverification_tpu_torch.optim import LeafTree, ParamTree
 from speakerverification_tpu_torch.training.state import TrainState
 from speakerverification_tpu_torch.weights import (
+    flax_path,
     params_from_jax,
     params_to_jax,
 )
@@ -36,17 +39,31 @@ __all__ = ["state_to_jax", "load_checkpoint", "load_params_only",
            "CheckpointManager"]
 
 
+def _leaf_path(key: str, model_state: dict) -> tuple:
+    """The flax path of the parameter ``key`` of the model."""
+    return flax_path(key, model_state[key].dim())
+
+
 def _opt_to_jax(node: Any, model_state: dict) -> Any:
     if isinstance(node, ParamTree):
         # the model's state supplies the BatchNorm scopes; the tree's
         # tensors replace its parameters
         return params_to_jax({**model_state, **node})[0]
+    if isinstance(node, LeafTree):
+        out: dict = {}
+        for key, v in node.items():
+            *scopes, name = _leaf_path(key, model_state)
+            d = out
+            for s in scopes:
+                d = d.setdefault(s, {})
+            d[name] = _opt_to_jax(v, model_state)
+        return out
     if isinstance(node, dict):
         return {k: _opt_to_jax(v, model_state) for k, v in node.items()}
     if isinstance(node, tuple):
         return tuple(_opt_to_jax(v, model_state) for v in node)
     if isinstance(node, bool):
-        return node
+        return np.asarray(node, np.bool_)
     if isinstance(node, int):
         return np.asarray(node, np.int32)
     if isinstance(node, (float, np.floating)):
@@ -71,9 +88,38 @@ def _mismatch(path: str, what: str) -> ValueError:
                       f"optimizer's at {path or '<root>'}: {what}")
 
 
-def _opt_from_jax(template: Any, raw: Any, stats: dict, path: str = "") -> Any:
+def _n_leaves(tree: Any) -> int:
+    return (sum(_n_leaves(v) for v in tree.values())
+            if isinstance(tree, dict) else 1)
+
+
+def _opt_from_jax(template: Any, raw: Any, stats: dict, path: str = "",
+                  model_state: Optional[dict] = None) -> Any:
     """``raw`` (a flax state dict) restored into ``template``'s structure;
-    ``ValueError`` where the two differ."""
+    ``ValueError`` where the two differ. ``model_state`` (the model's
+    ``state_dict``) places a ``LeafTree``'s leaves."""
+    if isinstance(template, LeafTree):
+        out = LeafTree()
+        n = 0
+        for key, t in template.items():
+            node = raw
+            for s in _leaf_path(key, model_state):
+                if not isinstance(node, dict) or s not in node:
+                    raise _mismatch(f"{path}/{key}", "missing")
+                node = node[s]
+            out[key] = _opt_from_jax(t, node, stats, f"{path}/{key}",
+                                     model_state)
+            n += _n_leaves(node)
+        if not isinstance(raw, dict) or _n_leaves(raw) != n:
+            raise _mismatch(path, "leaves left over")
+        return out
+    if isinstance(template, torch.Tensor):
+        arr = np.asarray(raw)
+        if tuple(arr.shape) != tuple(template.shape):
+            raise _mismatch(path, f"shape {arr.shape} != "
+                            f"{tuple(template.shape)}")
+        return torch.from_numpy(np.array(arr)).to(template.device,
+                                                  template.dtype)
     if isinstance(template, ParamTree):
         if not isinstance(raw, dict):
             raise _mismatch(path, "expected a parameter tree")
@@ -97,7 +143,7 @@ def _opt_from_jax(template: Any, raw: Any, stats: dict, path: str = "") -> Any:
             got = sorted(raw) if isinstance(raw, dict) else type(raw)
             raise _mismatch(path, f"keys {got} != {keys}")
         vals = template.values() if isinstance(template, dict) else template
-        out = [_opt_from_jax(t, raw[k], stats, f"{path}/{k}")
+        out = [_opt_from_jax(t, raw[k], stats, f"{path}/{k}", model_state)
                for k, t in zip(keys, vals)]
         return dict(zip(keys, out)) if isinstance(template, dict) \
             else tuple(out)
@@ -130,7 +176,8 @@ def load_checkpoint(path: str | Path, state: TrainState) -> TrainState:
     except KeyError as exc:
         raise ValueError(f"{path}: {exc}") from None
     opt_state = _opt_from_jax(state.opt_state, raw["opt_state"],
-                              raw["batch_stats"])
+                              raw["batch_stats"],
+                              model_state=state.model.state_dict())
     state.model.load_state_dict(sd)
     state.opt_state = opt_state
     state.step = int(np.asarray(raw.get("step", 0)))

@@ -17,15 +17,19 @@ leaves change layout:
   ``v_bias`` keep their names and layouts, and so do, only
   under the scopes that own them, a ``SampleLayerNorm_*``'s
   ``gamma``/``beta``, the metric heads' 0-d ``w``/``b`` and the margin
-  heads' ``W``/``weight`` (under ``loss``, or a head of it:
-  ``loss/AAmSoftmax_0/weight``);
+  heads' ``W``/``weight`` and proxy heads' ``proxies`` (under ``loss``,
+  or a head of it: ``loss/AAmSoftmax_0/weight``, ``loss/MMP_0/proxies``);
 * a GRU cell's six Dense products (``GRUCell_0/ir``, ..., ``hn``) are
   Linears of the same names.
 
 :func:`params_to_jax` is its inverse: a ``state_dict`` back to flax
 ``params``/``batch_stats`` numpy trees, which ``checkpoint.py`` writes
 in the JAX package's msgpack layout. The round trip through both gives
-the ``state_dict`` back bit for bit.
+the ``state_dict`` back bit for bit. :func:`flax_axes` is the axis
+permutation of one parameter under these rules, and :func:`flax_path`
+its flax path (for optimizers whose arithmetic depends on the layout,
+and the optimizer states that are keyed by parameter but shaped
+otherwise).
 
 :func:`init_weights_` gives a module random weights from a seeded
 generator, drawn from the distributions flax initializes with (the
@@ -47,27 +51,30 @@ import torch
 import torch.nn as nn
 
 __all__ = ["params_from_jax", "params_to_jax", "init_weights_", "cast_copy",
-           "act_scales_from_jax"]
+           "act_scales_from_jax", "flax_axes", "flax_path"]
 
 _SAME_NAME = {"alpha", "low_hz", "band_hz", "inorm_scale", "inorm_bias",
               "input_norm_scale", "input_norm_bias", "W", "sap_v", "u_bias",
               "v_bias"}
 # flax's LayerNorm scopes: ``scale``/``bias`` and no statistics
 _LAYER_NORM = re.compile(r"^(.*\.)?LayerNorm_\d+$")
-# the margin heads' own matrices (AmSoftmax/ARmSoftmax ``W [nOut,
-# nClasses]``, AAmSoftmax ``weight [nClasses, nOut]``) at the encoder's
-# ``loss`` scope or one margin head below it (the summed heads'): stored
-# as they are, not as a Dense kernel (a plain Softmax's ``Dense_0`` is one)
+# the margin heads' own matrices (AmSoftmax/ARmSoftmax/AngularPenaltySM
+# ``W [nOut, nClasses]``, AAmSoftmax ``weight [nClasses, nOut]``) at the
+# encoder's ``loss`` scope or one margin head below it (the summed
+# heads'), and the proxy heads' ``proxies [nClasses, nOut]`` at ``loss``
+# or MMP_Balance_MTL's ``MMP_0``: stored as they are, not as a Dense
+# kernel (a plain Softmax's ``Dense_0`` is one)
 _HEAD_LEAF = re.compile(
-    r"^loss(\.(AmSoftmax|AAmSoftmax|ARmSoftmax)_\d+)?\.(W|weight)$")
+    r"^loss(\.(AmSoftmax|AAmSoftmax|ARmSoftmax)_\d+)?\.(W|weight)$"
+    r"|^loss(\.MMP_\d+)?\.proxies$")
 # common names kept as they are only under the scopes that own them: the
 # sample LayerNorm's ``gamma``/``beta`` (at the root: a LayerNorm's own
 # tree), and the metric heads' 0-d ``w``/``b`` at ``loss`` or one head
 # below it (AAmSoftmaxAP's ``AngularProto_0``, GE2ELoss_fusion's
-# ``GE2ELossV2_*``)
+# ``GE2ELossV2_*``, MMP_Balance_MTL's ``MMP_0``)
 _OWNED_LEAF = re.compile(
     r"^((.*\.)?SampleLayerNorm_\d+\.)?(gamma|beta)$"
-    r"|^loss(\.(AngularProto|GE2ELossV2)_\d+)?\.(w|b)$")
+    r"|^loss(\.(AngularProto|GE2ELossV2|MMP)_\d+)?\.(w|b)$")
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -154,6 +161,31 @@ def params_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None,
     return out
 
 
+# torch → flax axes of a conv or Dense ``weight``, by rank
+_KERNEL_AXES = {4: (2, 3, 1, 0), 3: (2, 1, 0), 2: (1, 0)}
+
+
+def flax_axes(key: str, ndim: int) -> tuple:
+    """The permutation ``perm`` with ``flax_leaf = port_leaf.permute(perm)``
+    for the parameter ``key`` (a ``state_dict`` key) of rank ``ndim``:
+    a conv or Dense ``weight`` is transposed, every other leaf (the
+    heads' ``W``/``weight``/``proxies``, biases, norms) keeps its axes."""
+    name = key.rpartition(".")[2]
+    if name == "weight" and ndim >= 2 and not _HEAD_LEAF.match(key):
+        return _KERNEL_AXES[ndim]
+    return tuple(range(ndim))
+
+
+def flax_path(key: str, ndim: int) -> tuple:
+    """The flax ``params`` path of the trainable parameter ``key``: a
+    conv or Dense ``weight`` is a ``kernel``, a 1-D ``weight`` (a
+    BatchNorm's or LayerNorm's) a ``scale``."""
+    scope, _, name = key.rpartition(".")
+    if name == "weight" and not _HEAD_LEAF.match(key):
+        name = "kernel" if ndim >= 2 else "scale"
+    return tuple(scope.split(".")) + (name,) if scope else (name,)
+
+
 def _nest(tree: dict, key: str, value: np.ndarray) -> None:
     *scopes, name = key.split(".")
     for s in scopes:
@@ -183,14 +215,9 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> tuple[dict, dict]:
             _nest(stats, f"{scope}.{name[len('running_'):]}", arr.copy())
         elif name == "weight" and (bn or _LAYER_NORM.match(scope)):
             _nest(params, f"{scope}.scale", arr.copy())
-        elif name == "weight" and arr.ndim == 4:
-            _nest(params, f"{scope}.kernel",
-                  np.ascontiguousarray(arr.transpose(2, 3, 1, 0)))
-        elif name == "weight" and arr.ndim == 3:
-            _nest(params, f"{scope}.kernel",
-                  np.ascontiguousarray(arr.transpose(2, 1, 0)))
-        elif name == "weight" and arr.ndim == 2:
-            _nest(params, f"{scope}.kernel", np.ascontiguousarray(arr.T))
+        elif name == "weight" and arr.ndim in _KERNEL_AXES:
+            _nest(params, f"{scope}.kernel", np.ascontiguousarray(
+                arr.transpose(_KERNEL_AXES[arr.ndim])))
         elif name == "bias" or name in _SAME_NAME or _OWNED_LEAF.match(key):
             _nest(params, key, arr.copy())
         else:
@@ -217,7 +244,9 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     variance 1, LayerNorm scale 1 and bias 0, the loss heads' matrices
     (``xavier_normal_params``) ``xavier_normal``, the relative
     attention's ``u_bias``/``v_bias`` (``xavier_uniform_params``)
-    ``xavier_uniform``, a GRU's recurrent kernels (``orthogonal_params``)
+    ``xavier_uniform``, ``lecun_normal_params`` (a ``[fan_in, fan_out]``
+    matrix) ``lecun_normal``, ``normal_std_params`` (name → std) a
+    normal of that std, a GRU's recurrent kernels (``orthogonal_params``)
     ``orthogonal`` and ``normal_params`` a standard normal; the sinc,
     AFMS, norm and metric-head parameters keep their constructed values,
     which are flax's."""
@@ -238,6 +267,14 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
         for name in getattr(m, "xavier_normal_params", ()):
             w = getattr(m, name)
             std = (2.0 / (w.shape[0] + w.shape[1])) ** 0.5
+            w.copy_((torch.randn(w.shape, generator=generator) * std)
+                    .to(w.device, w.dtype))
+        for name in getattr(m, "lecun_normal_params", ()):
+            # a [fan_in, fan_out] matrix
+            _truncated_normal_(getattr(m, name), m.get_parameter(name)
+                               .shape[0] ** -0.5, generator)
+        for name, std in getattr(m, "normal_std_params", {}).items():
+            w = getattr(m, name)
             w.copy_((torch.randn(w.shape, generator=generator) * std)
                     .to(w.device, w.dtype))
         for name in getattr(m, "xavier_uniform_params", ()):

@@ -97,6 +97,7 @@ def _replay(x, w, cb, s, sh, d, slots=SLOTS):
 @pytest.mark.parametrize("T", ["2d+1", 9, 51, 201, 202, 1001])
 @pytest.mark.parametrize("d", [2, 3, 4])
 def test_tile_schedule_replays_the_cascade(d, T, B):
+    torch.set_num_threads(2)
     T = 2 * d + 1 if T == "2d+1" else T
     args = _inputs(B, 16, T, seed=T + d, dtype=np.float64)
     got, table = _replay(*args, d)
@@ -237,6 +238,7 @@ def _rel_err(hidden, d, amplitude, passes):
 @pytest.mark.parametrize("d", [2, 4])
 @pytest.mark.parametrize("hidden", [64, 128])
 def test_three_tf32_products_meet_the_fp32_tolerance(hidden, d, amplitude):
+    torch.set_num_threads(2)
     assert _rel_err(hidden, d, amplitude, passes=3) <= TOL
 
 
@@ -244,6 +246,7 @@ def test_three_tf32_products_meet_the_fp32_tolerance(hidden, d, amplitude):
 @pytest.mark.parametrize("d", [2, 4])
 @pytest.mark.parametrize("hidden", [64, 128])
 def test_one_tf32_product_fails_the_tolerance(hidden, d, amplitude):
+    torch.set_num_threads(2)
     assert _rel_err(hidden, d, amplitude, passes=1) > 10 * TOL
 
 

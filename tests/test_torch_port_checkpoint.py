@@ -342,6 +342,7 @@ def test_ema_weights_and_soups_match_jax(jstate, tmp_path):
                                   "Raw_ECAPA_hype", "RawNet2_custom",
                                   "RawNet2"])
 def test_params_to_jax_round_trips_bit_for_bit(name):
+    torch.set_num_threads(2)
     raw = name != "ECAPA_TDNN"
     h = {"model": {"name": name, "feature_type": "raw" if raw
                    else "melspectrogram", "nOut": 512 if raw else 192},

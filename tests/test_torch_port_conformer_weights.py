@@ -81,6 +81,7 @@ CONFORMER_SMALL = {"name": "Conformer", "nOut": 16, "encoder_dim": 32,
 
 @pytest.mark.parametrize("name", ["Conformer", "ECAPA_Conformer"])
 def test_full_width_round_trip_bit_for_bit(name):
+    torch.set_num_threads(2)
     model = TB.build_model(name, n_mels=80)
     init_weights_(model, torch.Generator().manual_seed(1))
     gen = torch.Generator().manual_seed(2)
@@ -144,6 +145,7 @@ def _std_within(w: torch.Tensor, want: float, rel: float) -> None:
 
 
 def test_init_weights_draws_as_flax():
+    torch.set_num_threads(2)
     model = TB.build_model("ECAPA_Conformer", n_mels=80)
     init_weights_(model, torch.Generator().manual_seed(0))
     enc = model.ConformerEncoder_0

@@ -153,6 +153,7 @@ def test_eval_snorm_matches_jax(ws):
 def test_eval_int8_tracks_float(ws):
     """ECAPA at 512 channels, so that the default floors quantize its
     11 large GEMMs: int8 trial scores within 2e-2 of the float ones."""
+    torch.set_num_threads(2)
     root, h, _, _ = ws
     h = {**h, "model": {"name": "ECAPA_TDNN",
                         "feature_type": "melspectrogram", "nOut": 192,
@@ -168,6 +169,7 @@ def test_eval_int8_tracks_float(ws):
 
 
 def test_cli_eval_writes_one_row_per_trial(ws, tmp_path, capsys):
+    torch.set_num_threads(2)
     root, h, weights, _ = ws
     cfg = tmp_path / "config.yaml"
     cfg.write_text(textwrap.dedent(f"""\

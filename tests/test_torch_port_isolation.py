@@ -52,7 +52,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                      "data.vad", "data.wav_conversion", "data.quality",
                      "data.dataprep", "cli.dataprep", "models.conformer",
                      "models.resnetse", "models.senet", "models.titanet",
-                     "models.hybrids2"):
+                     "models.hybrids2", "losses.adaptive",
+                     "losses.proxy", "losses.similarity", "losses.triplet",
+                     "optim.second_order"):
         assert f"speakerverification_tpu_torch.{expected}" in res["modules"]
     loaded = res["loaded"]
     # the GPU host has neither msgpack, ml_dtypes nor PyYAML: the codec is

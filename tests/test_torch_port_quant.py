@@ -230,6 +230,7 @@ def hybrid_pair():
 
 
 def test_calibrate_act_scales_matches_jax(hybrid_pair):
+    torch.set_num_threads(2)
     jm, tm, v, x, jscales = hybrid_pair
     got = tquant.calibrate_act_scales(
         tm, t(x[:2]), config=tquant.QuantConfig(**SMALL_FLOORS))
@@ -290,6 +291,7 @@ def _ecapa512_hparams(**extra):
 def test_engine_calibrates_jax_key_set_at_default_floors():
     """ECAPA at 512 channels: the default floors quantize its 1×1 convs,
     SE squeeze and MFA convs and the final Dense (11 layers)."""
+    torch.set_num_threads(2)
     h = _ecapa512_hparams()
     waves = _wave((3, 4000), seed=11)
     engine = InferenceEngine(h, device="cpu")

@@ -283,6 +283,7 @@ def test_rawnet2_custom_train_mode(front, agg):
 def test_rawnet2_custom_bf16_dtypes(front, agg):
     """bf16 weights and wave, fp32 statistics: the embedding's dtype is
     JAX's (fp32 from the GRU, bf16 from asp and sap)."""
+    torch.set_num_threads(2)
     x, jm, tm, v = _init_custom(front, agg, seed=9)
     ref32 = np.asarray(jm.apply(v, jnp.asarray(x)))
     vb = {"params": jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16),

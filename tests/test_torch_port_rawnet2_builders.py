@@ -50,6 +50,7 @@ def hparams_for(model: str, yaml_name: str, samples: int = T) -> dict:
 @pytest.mark.parametrize("model,yaml_name", BUILDERS,
                          ids=[b[0] for b in BUILDERS])
 def test_builder_through_speaker_encoder(model, yaml_name):
+    torch.set_num_threads(2)
     h = hparams_for(model, yaml_name)
     jm = JB.encoder_from_hparams(h, with_loss=False, num_devices=1)
     tm = TB.encoder_from_hparams(h)
@@ -94,6 +95,7 @@ def test_engine_serves_int8_of_the_asp_family(tmp_path):
     embeddings stay near the float engine's (cosine >= 0.99, the bar of
     chip_smoke's int8 paths). Scales and embeddings against JAX are held
     in ``test_torch_port_rawnet2_int8.py``."""
+    torch.set_num_threads(2)
     from speakerverification_tpu_torch.inference import InferenceEngine
     h = {**hparams_for("Raw_ECAPA_conv_asp", "voxceleb_raw_ecapa.yaml"),
          "save_folder": str(tmp_path)}

@@ -91,6 +91,7 @@ STATIC = {"Raw_ECAPA_conv_asp": (28, 16, "Conv_1"),
 
 @pytest.mark.parametrize("model", sorted(STATIC))
 def test_static_int8_matches_jax(model):
+    torch.set_num_threads(2)
     jm, tm, v, x = _pair(model, "voxceleb_raw_ecapa.yaml")
     jscales = jquant.calibrate_act_scales(jm, v, jnp.asarray(x[:2]))
     got = tquant.calibrate_act_scales(tm, t(x[:2]))
@@ -138,6 +139,7 @@ class _PortRNN(torch.nn.Module):
 
 
 def test_dynamic_int8_gru_cell_scales_each_step():
+    torch.set_num_threads(2)
     rng = np.random.default_rng(0)
     level = np.array([0.1, 1.0, 10.0, 0.5, 3.0, 0.02], np.float32)
     x = (rng.normal(0, 1, (2, 6, 512)) * level[None, :, None]).astype(
@@ -166,6 +168,7 @@ def test_dynamic_int8_gru_cell_scales_each_step():
 
 @pytest.mark.parametrize("model", ["RawNet2", "RawNet2_custom"])
 def test_dynamic_int8_of_the_gru_models_matches_jax(model):
+    torch.set_num_threads(2)
     jm, tm, v, x = _pair(model, "vlsp_rawnet2.yaml")
     x = x[:2]
     ref = np.asarray(jquant.int8_apply(jm, v, jnp.asarray(x)))

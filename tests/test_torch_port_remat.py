@@ -82,6 +82,7 @@ def _same(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
 
 @pytest.mark.parametrize("which", ["ECAPA_TDNN", "Raw3_ECAPA"])
 def test_remat_gives_equal_loss_gradients_and_statistics(which):
+    torch.set_num_threads(2)
     if which == "ECAPA_TDNN":
         plain, remat = _ecapa_pair()
         x = t(_feats())
@@ -165,6 +166,7 @@ def test_remat_training_gradient_matches_jax_remat():
 def test_remat_bf16_train_step_matches():
     """Through the train step's bf16 ``functional_call``: the recomputation
     uses the same bf16 copies, so both runs agree."""
+    torch.set_num_threads(2)
     from speakerverification_tpu_torch.encoder import SpeakerEncoder
     from speakerverification_tpu_torch.losses import build_loss
     from speakerverification_tpu_torch.optim import build_optimizer

@@ -171,6 +171,7 @@ def test_init_distributions_match_flax_rawnet2_family():
     """The same for Raw_ECAPA_sinc_gru + AAmSoftmaxAP: the GRU's input
     kernels (lecun_normal) and recurrent ones (orthogonal), the sample
     LayerNorm's 1/0 and AngularProto's constants 10 and -5."""
+    torch.set_num_threads(2)
     h = {"audio_spec": {"sample_rate": 16000, "sentence_len": 0.2},
          "features": "raw", "model": {"name": "Raw_ECAPA_sinc_gru",
                                       "feature_type": "raw", "nOut": 512},

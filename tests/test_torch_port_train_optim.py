@@ -5,7 +5,16 @@ Optimizers: 20 steps on one fixed stream of gradients (decaying from 1 to
 hyperparameter; parameters agree to 1e-6 of their largest value. The
 JAX update is jitted, as the train step runs it (eager XLA computes
 ``b2 ** count`` another way, a float ulp away). The optimizer state's
-layout is optax's as flax serializes it."""
+layout is optax's as flax serializes it.
+
+Shampoo's 1-D leaf is chaotic in fp32: its preconditioner is ε·I (ε
+1e-4) plus rank-one terms, whose inverse amplifies rounding by up to
+1/ε, so after 20 steps either package's fp32 run is far from a float64
+one (measured: JAX's 0.229 of the leaf's largest value, the port's
+0.143). There alone, where the leaf misses 1e-6, JAX's own float64 run
+decides: the port's float64 run is held to it to 1e-6 (measured
+1.4e-9), JAX's fp32 distance from it to three times the measured
+0.229, and the port's fp32 distance from it to twice JAX's."""
 
 import flax.serialization as fser
 import jax
@@ -44,6 +53,38 @@ OPTIMIZERS = [
     ("sgd", {"momentum": 0.9, "nesterov": True}),
     ("sgd", {}),
     ("AdaBelief", {"weight_decay": 2e-5, "ema_decay": 0.9}),
+    ("SGDW", {"weight_decay": 1e-2}),
+    ("SGDW", {"momentum": 0.9, "nesterov": True}),
+    ("QHM", {"weight_decay": 1e-4, "momentum": 0.9}),
+    ("QHAdam", {"nu1": 0.7, "weight_decay": 1e-4}),
+    ("DiffGrad", {"weight_decay": 1e-4}),
+    ("MADGRAD", {"weight_decay": 1e-4}),
+    ("MADGRAD", {"momentum": 0.0}),
+    ("AdaBound", {"weight_decay": 1e-4}),
+    ("AdaMod", {"weight_decay": 1e-4}),
+    ("AdamP", {"weight_decay": 1e-2}),
+    ("AdamP", {"nesterov": True}),
+    ("SGDP", {"weight_decay": 1e-2}),
+    ("AggMo", {"weight_decay": 1e-4}),
+    ("PID", {"momentum": 0.9, "weight_decay": 1e-4}),
+    ("PID", {}),
+    ("AccSGD", {"weight_decay": 1e-4}),
+    ("SWATS", {"weight_decay": 1e-4}),
+    ("RAdam", {"weight_decay": 1e-4}),
+    ("Lamb", {"weight_decay": 1e-2}),
+    ("Lamb", {"debias": True}),
+    ("LARS", {"weight_decay": 1e-4, "momentum": 0.9}),
+    ("NovoGrad", {"weight_decay": 1e-4}),
+    ("Adafactor", {"weight_decay": 1e-2}),
+    ("Adafactor", {"relative_step": False, "beta1": 0.9}),
+    ("Yogi", {"weight_decay": 1e-4}),
+    ("Lookahead", {}),
+    ("Lookahead", {"inner": "AdaBelief", "k": 3,
+                   "inner_kwargs": {"rectify": True}}),
+    ("Adahessian", {"weight_decay": 1e-4}),
+    ("Shampoo", {"momentum": 0.9, "weight_decay": 1e-4}),
+    ("Apollo", {"warmup": 5, "weight_decay": 1e-4}),
+    ("A2GradUni", {}),
 ]
 
 
@@ -57,29 +98,59 @@ def _problem():
     return params, grads
 
 
+def _port_run(tx, params, grads, dtype):
+    tp = {k: torch.from_numpy(v.copy()).to(dtype) for k, v in params.items()}
+    ts = tx.init(tp)
+    for i, g in enumerate(grads):
+        ts = set_learning_rate(ts, 1e-3 * (1 - i / 40))
+        u, ts = tx.update({k: torch.from_numpy(v).to(dtype)
+                           for k, v in g.items()}, ts, tp)
+        apply_updates(tp, u)
+    return tp, ts
+
+
+def _jax_run(name, kw, params, grads, dtype):
+    jtx = j_build(name, 1e-3, **kw)
+    jp = jax.tree.map(lambda a: jnp.asarray(a, dtype), params)
+    js = jtx.init(jp)
+    jupdate = jax.jit(jtx.update)
+    for i, g in enumerate(grads):
+        js = j_set_lr(js, jnp.asarray(1e-3 * (1 - i / 40), dtype))
+        u, js = jupdate(jax.tree.map(lambda a: jnp.asarray(a, dtype), g),
+                        js, jp)
+        jp = optax.apply_updates(jp, u)
+    return jp, js
+
+
+# Shampoo's 1-D leaf: JAX's fp32 distance from its float64 run, of the
+# leaf's largest value (measured; the bar is three times it)
+SHAMPOO_1D_FROM_F64 = 0.229
+
+
 @pytest.mark.parametrize("name,kw", OPTIMIZERS,
                          ids=[f"{n}-{'-'.join(k)}" for n, k in OPTIMIZERS])
 def test_trajectory_matches_optax(name, kw):
     params, grads = _problem()
-    jtx, ttx = j_build(name, 1e-3, **kw), build_optimizer(name, 1e-3, **kw)
-    jp = jax.tree.map(jnp.asarray, params)
-    js = jtx.init(jp)
-    jupdate = jax.jit(jtx.update)
-    tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
-    ts = ttx.init(tp)
-    for i, g in enumerate(grads):
-        lr = 1e-3 * (1 - i / 40)
-        js = j_set_lr(js, jnp.float32(lr))
-        u, js = jupdate(jax.tree.map(jnp.asarray, g), js, jp)
-        jp = optax.apply_updates(jp, u)
-        ts = set_learning_rate(ts, lr)
-        u, ts = ttx.update({k: torch.from_numpy(v) for k, v in g.items()},
-                           ts, tp)
-        apply_updates(tp, u)
+    jp, js = _jax_run(name, kw, params, grads, jnp.float32)
+    tp, ts = _port_run(build_optimizer(name, 1e-3, **kw), params, grads,
+                       torch.float32)
     for k in params:
         ref = np.asarray(jp[k])
-        assert np.max(np.abs(tp[k].numpy() - ref)) <= 1e-6 * np.max(
-            np.abs(ref)), k
+        scale = np.max(np.abs(ref))
+        err = np.max(np.abs(tp[k].numpy() - ref))
+        if err <= 1e-6 * scale:
+            continue
+        assert name == "Shampoo" and params[k].ndim == 1, \
+            f"{k}: max err {err:.3e} > 1e-6 * {scale:.3e}"
+        with jax.enable_x64(True):
+            j64 = np.asarray(_jax_run(name, kw, params, grads,
+                                      jnp.float64)[0][k])
+        t64 = _port_run(build_optimizer(name, 1e-3, **kw), params, grads,
+                        torch.float64)[0][k].numpy()
+        d_jax = np.max(np.abs(ref - j64))
+        assert np.max(np.abs(t64 - j64)) <= 1e-6 * scale, k
+        assert d_jax <= 3 * SHAMPOO_1D_FROM_F64 * scale, k
+        assert np.max(np.abs(tp[k].numpy() - j64)) <= 2 * d_jax, k
     if kw.get("ema_decay"):
         ema = ts[1]["ema"]          # track_ema, chained after the optimizer
         for k in params:

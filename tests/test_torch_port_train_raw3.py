@@ -23,6 +23,8 @@ JAX's own distance from it (CHANGES.md has every measurement):
   update cosine ≥ 0.85.
 """
 
+import torch
+
 from test_torch_port_train_helpers import raw3_steps
 
 
@@ -43,4 +45,5 @@ def check(rows) -> None:
 
 
 def test_raw3_ecapa_full_width_fp32_steps(tmp_path):
+    torch.set_num_threads(2)
     check(raw3_steps(tmp_path, accum_steps=1))

@@ -66,6 +66,7 @@ def _steps(tmp_path, mixedprec):
 
 
 def test_raw_ecapa_conv_asp_fp32_step(tmp_path):
+    torch.set_num_threads(2)
     row, = _steps(tmp_path, mixedprec=False)
     for other in ("ref", "jax"):
         assert abs(row["loss_port"] - row[f"loss_{other}"]) <= \
@@ -75,6 +76,7 @@ def test_raw_ecapa_conv_asp_fp32_step(tmp_path):
 
 
 def test_raw_ecapa_conv_asp_bf16_step(tmp_path):
+    torch.set_num_threads(2)
     row, = _steps(tmp_path, mixedprec=True)
     ref = row["loss_ref"]
     assert abs(row["loss_port"] - ref) <= 1.5 * abs(row["loss_jax"] - ref)

@@ -77,11 +77,11 @@ def test_chip_smoke_path_e_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
     log = capsys.readouterr().out
     assert "[E1] card vs CPU over 3 steps" in log and " ok" in log
     assert "FAIL" not in log
-    # one launch per forward: 1 gradient + 3 steps (E1); 13 fp32 and 13
-    # bf16 steps, 8 steps of 2 microbatches, 2 halves and 1 step of 2
+    # one launch per forward: 1 gradient + 3 steps (E1); 8 fp32 and 8
+    # bf16 steps, 7 steps of 2 microbatches, 2 halves and 1 step of 2
     # microbatches (E2; the profiles are left out here); 40 steps (E3);
     # 6 train steps and 6 eval batches (E4)
-    assert out["counts"]["mel_frontend"] == 4 + (26 + 16 + 4) + 40 + 12
+    assert out["counts"]["mel_frontend"] == 4 + (16 + 14 + 4) + 40 + 12
     assert out["counts"]["res2net_cascade"] == 0
     assert len(out["epochs_s"]) == 2
 

@@ -17,6 +17,7 @@ import textwrap
 import jax
 import numpy as np
 import pytest
+import torch
 import yaml
 
 from speakerverification_tpu.cli.main import main as jax_cli
@@ -188,6 +189,7 @@ def test_cli_verbs_write_the_jax_clis_artifacts(data, tmp_path, capsys):
     """Both CLIs, ``--device cpu``, from one JAX-written best_state in
     each run's model directory: prepare embed + eval + test + predict in
     one call, then prepare cohorts + eval with S-norm."""
+    torch.set_num_threads(2)
     root, files, _ = data
     run = {}
     for side, cli in (("jax", jax_cli), ("port", port_cli)):

@@ -35,6 +35,7 @@ def test_every_yaml_but_model_plot_is_listed():
 
 @pytest.mark.parametrize("name", YAMLS)
 def test_port_builds_the_yaml(name):
+    torch.set_num_threads(2)
     _builds_like_jax(name)
 
 
@@ -96,6 +97,7 @@ def test_registries_agree_on_the_zoo():
 
 @pytest.mark.parametrize("name", ZOO_NAMES)
 def test_zoo_name_builds_like_jax(name):
+    torch.set_num_threads(2)
     h = read_config(ROOT / "yaml" / "ecapa_tdnn.yaml")
     features = "raw" if name in ("Tita_ECAPA", "Raw_tita") else \
         "melspectrogram"

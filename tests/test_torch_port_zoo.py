@@ -175,6 +175,7 @@ RESNETSE = {"ResNetSE34": ("basic", (3, 4, 6, 3)),
 
 @pytest.mark.parametrize("name", sorted(RESNETSE))
 def test_resnetse_configs_at_small_width(name):
+    torch.set_num_threads(2)
     block, layers = RESNETSE[name]
     kw = dict(nOut=24, block=block, layers=layers,
               num_filters=(4, 8, 8, 16))
@@ -213,6 +214,7 @@ SENET = {"se_resnet18": ("basic", (2, 2, 2, 2)),
 def test_se_resnet_configs(name):
     """Each configuration at its own widths (64·2^stage planes) on a
     small image (40 frames x 24 features)."""
+    torch.set_num_threads(2)
     block, layers = SENET[name]
     x = feats((2, 40, 24), seed=6)
     jm = JS.SEResNet(nOut=32, block=block, layers=layers)
@@ -292,6 +294,7 @@ BUILDER_DEFAULTS = {
 
 @pytest.mark.parametrize("name", sorted(BUILDER_DEFAULTS))
 def test_builder_defaults_through_speaker_encoder(name):
+    torch.set_num_threads(2)
     model, features, samples = BUILDER_DEFAULTS[name]
     h = ecapa_yaml_hparams(model, samples=samples, features=features)
     got = _through_encoder(h, _waves(2, samples, seed=9), 1e-5, name)

@@ -104,6 +104,7 @@ def _full(name: str):
 
 @pytest.mark.parametrize("name", sorted(FULL))
 def test_full_width_round_trip_bit_for_bit(name):
+    torch.set_num_threads(2)
     h, _ = _full(name)
     model = TB.encoder_from_hparams(h).backbone
     init_weights_(model, torch.Generator().manual_seed(1))
@@ -157,6 +158,7 @@ def _std_within(w: torch.Tensor, want: float, rel: float) -> None:
 
 
 def test_init_weights_draws_as_flax():
+    torch.set_num_threads(2)
     tita = TB.build_model("TitaNet", nOut=192, n_mels=80)
     init_weights_(tita, torch.Generator().manual_seed(0))
     blk = tita.MegaBlock_0.ConvBlock1d_0
@@ -260,6 +262,7 @@ def _cos(a, b):
 
 @pytest.mark.parametrize("name", sorted(INT8))
 def test_int8_scales_and_embeddings_match_jax(name):
+    torch.set_num_threads(2)
     h, samples = _full(name)
     x = _waves(3, samples, seed=7)
     jm = JB.encoder_from_hparams(h, with_loss=False, num_devices=1)
