@@ -12,6 +12,8 @@
                                        # hybrids2, int8 of RawNet2)
     python3 chip_smoke.py --train-zoo  # only path L (the loss and
                                        # optimizer zoos)
+    python3 chip_smoke.py --model-zoo  # only path M (the rest of the
+                                       # model zoo)
 
 Phases, each of which fails the run:
   1. build the hand-written kernels from ``speakerverification_tpu_torch/csrc``
@@ -116,14 +118,33 @@ Phases, each of which fails the run:
      timed as its share of the step; L4 Adahessian's true second-order
      step (double backward) against its plain one, time and peak
      memory; L5 ``--do_train`` with MSAmSoftmax and Lamb, its optimizer
-     state read back, then ``--do_infer --eval``.
+     state read back, then ``--do_infer --eval`` (the whole script runs
+     Shampoo on the head's first 2,048 classes, ``--train-zoo`` on all);
+ 15. path M: the rest of the model zoo (``yaml/ecapa_tdnn.yaml``'s audio
+     keys, 8 x 20 crops of 2 s a served batch): M1 EfficientNet-b4,
+     EfficientNetv2-s, RepVGG-D2se, SCNet-50 and DPN at their builders'
+     defaults, one served batch each against the CPU (K1 once per
+     forward), timed, peak memory, RepVGG's deploy fold against its train
+     layout; M2 RawNeXt, ResNeXt and RawNet3 alike, RawNet3's other
+     options on 32 crops against the CPU; M3 ``[RawNet3, ECAPA_TDNN]``
+     (``raw3_ecapa.yaml``'s keys, ``conv_backend: pallas``) served (K1
+     once, K2 three times per forward), K2 at its shape; M4 ``quant:
+     int8`` of each against the plain int8 path on the CPU and the float
+     path, K3 at every new shape, bit for bit and timed; M5 the 64 x
+     2-crop AAmSoftmax step of EfficientNet-b4 and RawNeXt: the gradient
+     by module against the CPU, the fp32 step timed; M6 TDFbanks and the
+     pooling modules against the CPU.
 Every path is compared with the same model's plain path on the CPU.
+The whole script times its train steps without profiling them and each
+loader over its first 8 batches (``PROFILE_STEPS``, ``LOADER_BATCHES``);
+a path run alone profiles its steps and reads whole epochs.
 
 The script imports nothing of the JAX package. hparams are built in code
 (they mirror ``yaml/raw3_ecapa.yaml``, ``yaml/ecapa_tdnn.yaml``,
 ``yaml/voxceleb_raw_ecapa.yaml``, the yamls of path F3 and
-``yaml/model_plot.yaml``, which CPU tests check; path J takes
-``ecapa_tdnn.yaml``'s). The last line of standard output is the JSON result.
+``yaml/model_plot.yaml``, which CPU tests check; paths J and M take
+``ecapa_tdnn.yaml``'s, M3 ``raw3_ecapa.yaml``'s). The last line of
+standard output is the JSON result.
 """
 
 from __future__ import annotations
@@ -440,17 +461,20 @@ def bf16_close(diff, ref):
             f"err/mean|ref| {mean_rel:.2e} (<= 1e-4)")
 
 
-def check_cascade_kernel(dev, gen):
-    """K2 against its plain version: H 64 (Raw3_ECAPA's ECAPA branch,
-    160 crops) and 128 (ECAPA_TDNN, 80 crops), d 2/3/4, fp32 and bf16;
-    timed at d 2, and at d 4 for H 128 fp32, where the halo's recompute
-    is largest; at path B's shape also with 2 to 5 tiles per crop."""
+def check_cascade_kernel(dev, gen, shapes=((64, 160), (128, 80)),
+                         time_every: bool = False):
+    """K2 against its plain version at each ``(H, B)`` of ``shapes``
+    (default H 64: Raw3_ECAPA's ECAPA branch, 160 crops, and 128:
+    ECAPA_TDNN, 80 crops), d 2/3/4, fp32 and bf16; timed at d 2, and at
+    d 4 for H 128 fp32, where the halo's recompute is largest (every d
+    with ``time_every``); at path B's shape also with 2 to 5 tiles per
+    crop."""
     import torch
     import torch.nn.functional as F
     from speakerverification_tpu_torch.ops import res2net_cascade as rc
     results = []
     T, groups = 201, 8
-    for hidden, B in ((64, 160), (128, 80)):
+    for hidden, B in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             for d in (2, 3, 4):
                 C = groups * hidden
@@ -484,8 +508,8 @@ def check_cascade_kernel(dev, gen):
                 if not ok:
                     fail(f"cascade kernel disagrees with its plain version "
                          f"({tag})")
-                if d != 2 and not (hidden == 128 and d == 4
-                                   and dtype == torch.float32):
+                if d != 2 and not time_every and not (
+                        hidden == 128 and d == 4 and dtype == torch.float32):
                     continue
                 item = x.element_size()
                 flops = 2.0 * B * T * hidden * hidden * 3 * (groups - 1)
@@ -555,7 +579,7 @@ def check_cascade_kernel(dev, gen):
                     f"recompute {recompute:.3f}x, about {w_gb:.3f} GB of "
                     f"weights from L2 (schedule estimate)")
                 results.append(res)
-                if (hidden, d, dtype) == (128, 2, torch.float32):
+                if (hidden, B, d, dtype) == (128, 80, 2, torch.float32):
                     time_tile_counts(rc, (x, w, cb, s, sh), d, tag,
                                      table.shape[0] // B)
     return results
@@ -623,7 +647,8 @@ def check_quant_kernel(dev, gen):
             for dtype in (torch.float32, torch.bfloat16)]
 
 
-def check_quant_shape(dev, gen, x_shape, N, dtype, per_fwd, layer):
+def check_quant_shape(dev, gen, x_shape, N, dtype, per_fwd, layer,
+                      detail: bool = True):
     import torch
     import torch.nn.functional as F
     from speakerverification_tpu_torch.ops import quant_matmul as qm
@@ -689,7 +714,7 @@ def check_quant_shape(dev, gen, x_shape, N, dtype, per_fwd, layer):
         "bound_ms": b_ms, "bound_by": b_by, "gop": flops / 1e9,
         "launches_per_forward": per_fwd,
     }
-    if conv and x_shape[2] > 1:
+    if detail and conv and x_shape[2] > 1:
         log_quant_trace(qm, label, (x, wq, s_w, bias, act), K, res["ms"])
         time_quant_tiles(qm, label, (x, wq, s_w, bias, act))
     log(f"[K3 {label}] kernel {res['ms']:.4f} ms  plain "
@@ -1727,6 +1752,13 @@ def throughput(label: str, engine, waves, num_eval: int, card: str) -> None:
 # whole script took 997 and 1,170 s on two H100 machines whose timed
 # steps differed by 3 %
 PROFILE_CALLS = 1
+# the whole script (main) times its train steps without profiling them and
+# times each loader over its first LOADER_BATCHES batches: a profiled step
+# takes seconds of host time to tabulate (~20 of them in a whole run), and
+# the loader sweeps ~50 s over full epochs; each path run alone
+# (``--zoo``, ``--data-path``, ...) keeps both
+PROFILE_STEPS = True
+LOADER_BATCHES = None
 
 
 def profile(label: str, engine, waves, fn=None, top: int = 12,
@@ -2027,15 +2059,21 @@ def path_e1(h) -> dict:
     return counts
 
 
+def busy_pct(busy) -> str:
+    """A profiled step's device busy share, or that none was taken."""
+    return "not profiled" if busy is None else f"{100 * busy:.1f} %"
+
+
 def time_steps(label: str, h, card: str, steps: int = 6,
                warmup: int = 2, tag: str = "E2", built=None,
                step_args=(), batch=None) -> dict:
     """ms per train step at the yaml's batch (``batch_size`` speakers x 2
     crops) by CUDA events over ``steps`` steps after ``warmup``, peak
-    memory, and a profile of the step. ``built`` is a ``(state, step)``
-    to time instead of a fresh one; ``step_args`` follow the learning
-    rate (a generator and banks); ``batch`` is a loader's ``(wave,
-    label)`` to step on instead of a seeded one."""
+    memory, and (``PROFILE_STEPS``) a profile of the step, whose device
+    busy share it returns. ``built`` is a
+    ``(state, step)`` to time instead of a fresh one; ``step_args``
+    follow the learning rate (a generator and banks); ``batch`` is a
+    loader's ``(wave, label)`` to step on instead of a seeded one."""
     import torch
     state, step = built or train_state(h, E_DEVICE)
     n_spk = int(h["dataloader_options"]["batch_size"])
@@ -2069,7 +2107,8 @@ def time_steps(label: str, h, card: str, steps: int = 6,
     log(f"[{tag} {label}] {ms:.2f} ms per step (CUDA events over {steps} "
         f"steps; host wall {wall:.2f} ms) -> {n_crops / ms * 1e3:.1f} "
         f"crops/s, peak memory {peak:.2f} GiB, loss {loss:.4f} ({card})")
-    busy = profile(f"{tag} {label}", None, None, fn=one, host=True)
+    busy = (profile(f"{tag} {label}", None, None, fn=one, host=True)
+            if PROFILE_STEPS else None)
     return {"ms": ms, "crops_per_s": n_crops / ms * 1e3, "peak_gib": peak,
             "wall_ms": wall, "busy": busy, "steps": warmup + steps}
 
@@ -2479,9 +2518,11 @@ def augmented(h: dict, options: dict, paths: dict, **extra) -> dict:
 def loader_epoch(h: dict, label: str, card: str, workers: int,
                  tag: str = "G1") -> dict:
     """ms per batch of the training loader with ``workers`` decode
-    threads over one full epoch, the first batch (thread start) apart,
-    and the process's CPU seconds over the same wall seconds: the number
-    of cores the loader kept busy on average."""
+    threads over one full epoch (its first ``LOADER_BATCHES`` when set),
+    the first batch (thread start) apart, and the process's CPU seconds
+    over the same wall seconds: the number of cores the loader kept busy
+    on average."""
+    import itertools
     from speakerverification_tpu_torch.data.loader import train_data_loader
     opts = {**h["dataloader_options"], "num_workers": workers}
     loader = train_data_loader({**h, "dataloader_options": opts})
@@ -2489,12 +2530,13 @@ def loader_epoch(h: dict, label: str, card: str, workers: int,
     it = iter(loader)
     next(it)
     t1, c1 = time.time(), time.process_time()
-    n = sum(1 for _ in it)
+    n = sum(1 for _ in itertools.islice(it, LOADER_BATCHES))
     wall, cpu = time.time() - t1, time.process_time() - c1
     ms = wall / max(n, 1) * 1e3
     log(f"[{tag} loader {label}] {ms:.1f} ms per batch of "
-        f"{opts['batch_size'] * opts['nPerSpeaker']} crops over the "
-        f"epoch's {n} batches after the first ({1e3 * (t1 - t0):.1f} ms), "
+        f"{opts['batch_size'] * opts['nPerSpeaker']} crops over "
+        f"{'the epoch' + chr(39) + 's' if LOADER_BATCHES is None else 'the'} "
+        f"{n} batches after the first ({1e3 * (t1 - t0):.1f} ms), "
         f"{loader.num_workers} decode threads, {cpu / wall:.2f} cores busy, "
         f"engine {'on' if loader.augmentor else 'off'} ({card})")
     return {"ms": ms, "cores": cpu / wall, "batches": n}
@@ -2680,7 +2722,7 @@ def path_g(tmp, card: str) -> dict:
     pace = "loader" if on > g1["ms"] else "device"
     log(f"[G1] loader {on:.1f} ms per batch with host augmentation "
         f"({off:.1f} without), step {g1['ms']:.2f} ms (busy "
-        f"{100 * g1['busy']:.1f} %), loader + step {loop:.1f} ms: the "
+        f"{busy_pct(g1['busy'])}), loader + step {loop:.1f} ms: the "
         f"{pace} sets the pace ({card})")
 
     # G2: env_corrupt and the time chain inside the step
@@ -2693,8 +2735,8 @@ def path_g(tmp, card: str) -> dict:
     shares = env_shares(banks)
     for k in KERNELS:
         counts[k] += g2["counts"][k] + g2t["counts"][k]
-    log(f"[G2] step: np {g2['ms']:.2f} ms (busy {100 * g2['busy']:.1f} %), "
-        f"torch {g2t['ms']:.2f} ms (busy {100 * g2t['busy']:.1f} %), host "
+    log(f"[G2] step: np {g2['ms']:.2f} ms (busy {busy_pct(g2['busy'])}), "
+        f"torch {g2t['ms']:.2f} ms (busy {busy_pct(g2t['busy'])}), host "
         f"augment {g1['ms']:.2f} ms; loader + step: np {g2['loop_ms']:.1f} "
         f"ms, torch {g2t['loop_ms']:.1f} ms, host augment {loop:.1f} ms; "
         f"card vs CPU max abs {json.dumps(errs)}; "
@@ -2741,7 +2783,7 @@ def path_g(tmp, card: str) -> dict:
         counts[k] += c[k]
     log(f"[G3] ECAPA_TDNN {h3['dataloader_options']['batch_size'] * 2} "
         f"crops x 32,000: SpecAugment card vs CPU max abs {err:.3e}; step "
-        f"{g3['ms']:.2f} ms (busy {100 * g3['busy']:.1f} %); launches {c} "
+        f"{g3['ms']:.2f} ms (busy {busy_pct(g3['busy'])}); launches {c} "
         f"({card})")
     del state, step
 
@@ -3063,7 +3105,7 @@ def path_h3(h_wav: dict, h_shard: dict, noise8: dict, card: str) -> dict:
         h_dev, "shards + device_augment np", card, built, loader,
         step_args=(gen, banks))
     floor = alone["ms"]
-    log(f"[H3] step alone {floor:.2f} ms (busy {100 * alone['busy']:.1f} %);"
+    log(f"[H3] step alone {floor:.2f} ms (busy {busy_pct(alone['busy'])});"
         f" fed, one sync: " + ", ".join(
             f"{k} {v:.1f} ms ({v - floor:+.1f})" for k, v in loops.items())
         + f" ({card})")
@@ -3719,10 +3761,13 @@ def path_j1(card: str) -> dict:
 
 
 def int8_served(tag: str, h: dict, waves, float_emb, table,
-                bn_seed: int, card: str) -> dict:
+                bn_seed: int, card: str, mel: int = 1,
+                cascade: int = 0) -> dict:
     """``h`` with ``quant: int8`` through the engine (calibrated on the
-    batch): K3's launches at ``table``'s shapes, the embeddings against
-    the plain int8 path on the CPU (same scales) and ``float_emb``."""
+    batch): K3's launches at ``table``'s shapes (and ``mel`` and
+    ``cascade`` launches of K1 and K2 per forward), the embeddings
+    against the plain int8 path on the CPU (same scales) and
+    ``float_emb``."""
     import copy
 
     import numpy as np
@@ -3738,7 +3783,7 @@ def int8_served(tag: str, h: dict, waves, float_emb, table,
         got = engine.embed_fn(waves).cpu().numpy()
         torch.cuda.synchronize()
     counts = read_counts()
-    want = {"mel_frontend": 1, "res2net_cascade": 0,
+    want = {"mel_frontend": mel, "res2net_cascade": cascade,
             "quant_matmul": sum(r[2] for r in table)}
     log(f"[{tag}] {h['model']['name']} int8, {len(engine.act_scales)} "
         f"calibrated layers: launches per forward {counts}")
@@ -3965,6 +4010,11 @@ L_ZERO_GRAD = {("MP", "b"), ("MP_Balance", "b")}
 # this (272 of the 275: the head's W [512, 13,103] and two 1x1 conv
 # kernels with 4,608 inputs are left out)
 L_SHAMPOO_CPU_AXIS = 4096
+# the whole script's L3 runs Shampoo on the head's first 2,048 classes
+# (its 13,103-class update is one ~38 s SVD) and holds the leaves with
+# every axis <= 1,024 (258 of 275) against the CPU, whose update of the
+# leaves up to 4,096 took 97 s on a slow host; ``--train-zoo`` keeps both
+L_SHAMPOO_WHOLE_RUN = {"shampoo_classes": 2048, "shampoo_cpu_axis": 1024}
 # a divergent head's loss on the card against the CPU's (path L2): at
 # step 0, on the same weights, within this relative difference; after the
 # first step, within this factor either way (see path_l2)
@@ -4335,14 +4385,27 @@ def l_updates(tx, params: dict, grads: list, n: int, keys=None,
     return p, ms
 
 
-def path_l3(h: dict, model, trunk, card: str) -> dict:
+def shampoo_cut(tree: dict, n_classes: int, keep: int) -> dict:
+    """``tree``'s leaves with every axis of ``n_classes`` (the head's
+    class axis) cut to its first ``keep`` entries."""
+    out = {}
+    for k, v in tree.items():
+        for axis, size in enumerate(v.shape):
+            if size == n_classes:
+                v = v.narrow(axis, 0, keep)
+        out[k] = v.contiguous()
+    return out
+
+
+def path_l3(h: dict, model, trunk, card: str, shampoo_classes=None,
+            shampoo_cpu_axis: int = L_SHAMPOO_CPU_AXIS) -> dict:
     """Each new optimizer (and Lookahead over AdaBelief): three updates on
     the card and on the CPU from the same parameters with the same three
     gradient trees, every leaf within 1e-6 of its largest value (the CPU
     tests' bar) but those whose gradient is zero by construction
     (``ZERO_GRAD``: rounding noise, which Adafactor's relative step
     scales up to a full step; 1e-5 there). Shampoo: one update, on the
-    CPU over the leaves whose axes are all <= ``L_SHAMPOO_CPU_AXIS`` (in
+    CPU over the leaves whose axes are all <= ``shampoo_cpu_axis`` (in
     a thread, beside the card's); a leaf within 1e-5, or else no more
     than twice as far as the CPU's from a float64 run of that leaf (on the
     card): where a preconditioner is rank-deficient (a 1-D leaf, a Dense
@@ -4350,7 +4413,9 @@ def path_l3(h: dict, model, trunk, card: str) -> dict:
     rounding by up to eps^(-1/order). Then five train steps on the card
     (none for Shampoo: one update takes ~38 s, almost all one SVD of the
     13,103² class-axis preconditioner), the loss and the parameters
-    finite, the step and ``tx.update`` timed (CUDA events)."""
+    finite, the step and ``tx.update`` timed (CUDA events). With
+    ``shampoo_classes``, Shampoo's update runs on the head's first that
+    many classes (its leaves are updated each on its own)."""
     import concurrent.futures
 
     import torch
@@ -4375,12 +4440,22 @@ def path_l3(h: dict, model, trunk, card: str) -> dict:
         bar = 1e-5 if name == "Shampoo" else 1e-6
         if name == "Shampoo":
             n = 1
-            keys = [k for k in params if max(to_flax(
-                k, params[k]).shape, default=0) <= L_SHAMPOO_CPU_AXIS]
+            s_params, s_params_cpu, s_grads, s_grads_cpu = \
+                params, params_cpu, grads, grads_cpu
+            if shampoo_classes:
+                def cut(tree):
+                    return shampoo_cut(tree, int(h["nClasses"]),
+                                       shampoo_classes)
+                s_params, s_params_cpu = cut(params), cut(params_cpu)
+                s_grads = [cut(g) for g in grads]
+                s_grads_cpu = [cut(g) for g in grads_cpu]
+            keys = [k for k in s_params if max(to_flax(
+                k, s_params[k]).shape, default=0) <= shampoo_cpu_axis]
             with concurrent.futures.ThreadPoolExecutor(1) as pool:
-                cpu_job = pool.submit(l_updates, tx, params_cpu, grads_cpu,
-                                      n, keys)
-                p_card, upd_ms = l_updates(tx, params, grads, n, timed=True)
+                cpu_job = pool.submit(l_updates, tx, s_params_cpu,
+                                      s_grads_cpu, n, keys)
+                p_card, upd_ms = l_updates(tx, s_params, s_grads, n,
+                                           timed=True)
                 t1 = time.time()
                 p_cpu, _ = cpu_job.result()
             # the float64 run, of the leaves that miss the bar only (each
@@ -4388,9 +4463,9 @@ def path_l3(h: dict, model, trunk, card: str) -> dict:
             miss = [k for k in keys if float(
                 (p_card[k].cpu() - p_cpu[k]).abs().max()) > bar * max(
                 float(p_cpu[k].abs().max()), 1e-30)]
-            p64, _ = l_updates(tx, {k: params[k].double() for k in miss},
+            p64, _ = l_updates(tx, {k: s_params[k].double() for k in miss},
                                [{k: g[k].double() for k in miss}
-                                for g in grads], n)
+                                for g in s_grads], n)
         else:
             n = 3
             p_card, upd_ms = l_updates(tx, params, grads, n, timed=True)
@@ -4582,11 +4657,15 @@ def path_l5(tmp, h: dict, card: str) -> dict:
     return e
 
 
-def path_l(tmp, card: str, h: dict = RAW3_TRAIN_HPARAMS) -> dict:
+def path_l(tmp, card: str, h: dict = RAW3_TRAIN_HPARAMS,
+           shampoo_classes=None,
+           shampoo_cpu_axis: int = L_SHAMPOO_CPU_AXIS) -> dict:
     """The eleventh slice (L1-L5) on the default stack at path E's width:
     the 17 new heads against the CPU (L1) and in the train step (L2), the
     24 new optimizers and Lookahead over AdaBelief against the CPU and in
-    the step (L3), Adahessian's true second-order step (L4), the CLI with
+    the step (L3; Shampoo on ``shampoo_classes`` of the head's classes
+    when set, against the CPU over the leaves with every axis <=
+    ``shampoo_cpu_axis``), Adahessian's true second-order step (L4), the CLI with
     MSAmSoftmax and Lamb (L5)."""
     import torch
     walls = {}
@@ -4606,7 +4685,8 @@ def path_l(tmp, card: str, h: dict = RAW3_TRAIN_HPARAMS) -> dict:
     l4 = timed_phase("L4", path_l4, h, model, trunk, card)
     l5 = timed_phase("L5", path_l5, tmp, h, card)
     # last: Shampoo's one update holds ~4 GiB of 13,103² matrices
-    l3 = timed_phase("L3", path_l3, h, model, trunk, card)
+    l3 = timed_phase("L3", path_l3, h, model, trunk, card,
+                     shampoo_classes, shampoo_cpu_axis)
     counts = {k: l1["counts"][k] + l2["counts"][k] + l3["counts"][k]
               + l4["counts"][k] + l5["counts"][k] for k in KERNELS}
     log(f"[L] launches over L1-L5: {counts}; wall by phase (s) {walls}, "
@@ -4614,6 +4694,396 @@ def path_l(tmp, card: str, h: dict = RAW3_TRAIN_HPARAMS) -> dict:
     if counts["res2net_cascade"] or counts["quant_matmul"]:
         fail(f"path L: unexpected launches {counts}")
     return {"counts": counts, "l1": l1, "l2": l2, "l3": l3, "l4": l4}
+
+
+# ----------------------------------------------------------------------
+# path M: the rest of the model zoo
+# ----------------------------------------------------------------------
+# M1/M2: each model at its builder's defaults with ecapa_tdnn.yaml's audio
+# keys (16 kHz, 2 s crops, 80 mels, fmin 20, fmax 7600), 8 x 20 crops a
+# served batch; the raw-wave models take features: raw
+M_IMAGE = {"EfficientNet": 512, "EfficientNetv2": 512, "RepVGG": 256,
+           "SCnet": 256, "DPN": 512}
+M_RAW = {"RawNeXt": 512, "ResNeXt": 512, "RawNet3": 512}
+# M2: RawNet3's other settings, each option in one of these, on 32 crops
+M_RAWNET3_OPTIONS = [
+    {"out_bn": True, "encoder_type": "ECA"},
+    {"log_sinc": False, "norm_sinc": "mean_std"},
+    {"norm_sinc": "none", "summed": False},
+    {"context": False, "sinc_stride": 5},
+]
+# M3: raw3_ecapa.yaml's keys (8 kHz) with a list-valued name
+MIXED_HPARAMS = {
+    **RAW3_ECAPA_HPARAMS,
+    "model": {"name": ["RawNet3", "ECAPA_TDNN"], "feature_type": "raw",
+              "nOut": 512, "nOuts": [320, 192], "conv_backend": "pallas"},
+}
+# K3 in each model's int8 forward at the serving batch (160 crops): x as
+# the wrapper gets it, N, launches per forward, the model
+# (tests/test_torch_port_mixed.py holds them against the models)
+M_QUANT_SHAPES = [
+    ((160, 3584), 512, 1, "EfficientNet"),
+    ((160, 1792), 512, 1, "EfficientNetv2"),
+    ((160, 2560), 320, 1, "RepVGG"), ((160, 2560), 256, 1, "RepVGG"),
+    ((160, 2048), 256, 1, "SCnet"),
+    ((160, 2688), 512, 1, "DPN"),
+    ((160, 512, 2187), 256, 1, "RawNeXt"), ((160, 512, 729), 256, 1, "RawNeXt"),
+    ((160, 1024, 729), 256, 1, "RawNeXt"), ((160, 512, 3), 170, 6, "RawNeXt"),
+    ((160, 512, 243), 256, 3, "RawNeXt"), ((160, 512, 81), 128, 3, "RawNeXt"),
+    ((160, 512, 729), 128, 3, "RawNeXt"), ((160, 1024, 243), 512, 1, "RawNeXt"),
+    ((160, 1792, 243), 512, 1, "RawNeXt"), ((160, 512, 81), 256, 2, "RawNeXt"),
+    ((160, 512, 27), 128, 2, "RawNeXt"), ((160, 512, 243), 128, 2, "RawNeXt"),
+    ((160, 1536, 81), 512, 1, "RawNeXt"), ((160, 1024), 512, 1, "RawNeXt"),
+    ((160, 512, 3), 170, 3, "ResNeXt"), ((160, 512, 243), 256, 1, "ResNeXt"),
+    ((160, 512, 81), 128, 1, "ResNeXt"), ((160, 512, 729), 128, 1, "ResNeXt"),
+    ((160, 512, 81), 256, 1, "ResNeXt"), ((160, 512, 27), 128, 1, "ResNeXt"),
+    ((160, 512, 243), 128, 1, "ResNeXt"), ((160, 1024), 512, 1, "ResNeXt"),
+    ((160, 1024, 3175), 1024, 1, "RawNet3"), ((160, 1024), 1024, 3, "RawNet3"),
+    ((160, 1024, 635), 1024, 2, "RawNet3"),
+    ((160, 1024, 211), 1024, 2, "RawNet3"),
+    ((160, 3072, 211), 1536, 1, "RawNet3"),
+    ((160, 4608, 211), 128, 1, "RawNet3"), ((160, 3072), 512, 1, "RawNet3"),
+    ((160, 1024, 1575), 1024, 1, "Mixed"), ((160, 1024), 1024, 3, "Mixed"),
+    ((160, 1024, 315), 1024, 2, "Mixed"), ((160, 1024, 105), 1024, 2, "Mixed"),
+    ((160, 3072, 105), 1536, 1, "Mixed"), ((160, 4608, 105), 128, 1, "Mixed"),
+    ((160, 3072), 320, 1, "Mixed"), ((160, 1024, 201), 1024, 6, "Mixed"),
+    ((160, 1024, 1), 128, 3, "Mixed"), ((160, 3072, 201), 3072, 1, "Mixed"),
+    ((160, 6144), 192, 1, "Mixed"),
+]
+# M5: gradients zero by construction (a bias before a train-mode BN, or
+# one that shifts every slot or step of a softmax alike: the gates' and
+# the pooling's), and the bar of the gradient check by module: RawNeXt's
+# stem sits at cosine 0.99969 card vs CPU (an H100 80GB, 4 x 2 crops), its
+# gradient passed back through 20-odd train-mode BatchNorms in fp32
+M_ZERO_GRAD = {
+    "EfficientNet": (),
+    "RawNeXt": ("GateModule_0.Conv_1.bias", "GateModule_0.BatchNorm_0.bias",
+                "backbone.Conv_4.bias", "backbone.BatchNorm_3.bias",
+                "backbone.BatchNorm_4.bias", "backbone.Dense_0.bias",
+                "ConvTranspose_1.bias"),
+}
+M_GRAD_BAR = {"EfficientNet": 0.999, "RawNeXt": 0.998}
+
+
+def m_hparams(name: str, n_out: int) -> dict:
+    """ecapa_tdnn.yaml's keys (path J's, with its train keys) for one
+    model of path M at its builder's nOut."""
+    ft = "raw" if name in M_RAW else "melspectrogram"
+    return {**RESNETSE_HPARAMS, "features": ft,
+            "model": {"name": name, "feature_type": ft, "nOut": n_out}}
+
+
+def m_quant_table(model: str) -> list:
+    return [r for r in M_QUANT_SHAPES if r[3] == model]
+
+
+def m_waves(h: dict, n: int, seed: int):
+    import numpy as np
+    return (0.1 * np.random.default_rng(seed).normal(
+        0, 1, (n, crop_samples(h)))).astype(np.float32)
+
+
+def m_served(tag: str, h: dict, seed: int, card: str, want: dict) -> dict:
+    """One served batch (8 x ``num_eval`` crops) of ``h``'s model through
+    ``InferenceEngine`` on the card: launches (``want`` per forward),
+    forward ms, peak memory, 16 crops against the CPU's plain path."""
+    import torch
+    from speakerverification_tpu_torch.inference import InferenceEngine
+    engine = InferenceEngine(h, device=E_DEVICE)
+    randomize_bn_(engine.model, seed=seed)
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    waves = m_waves(h, BATCH_UTTS * h["num_eval"], seed)
+    engine.embed_fn(waves)                               # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    peak = peak_gib(lambda: engine.embed_fn(waves))
+    got = read_counts()
+    name = h["model"]["name"]
+    name = "+".join(name) if isinstance(name, list) else name
+    log(f"[{tag}] {name}: {n_params / 1e6:.2f} M params; a served batch "
+        f"of {len(waves)} crops: peak memory {peak:.2f} GiB, launches "
+        f"{got} ({card})")
+    if got != want:
+        fail(f"path {tag} {name}: expected {want}, got {got}")
+    throughput(f"{tag} {name}", engine, waves, h["num_eval"], card)
+    compare_with_cpu(engine, waves[:16], f"{tag} {name}")
+    float_emb = engine.embed_fn(waves).cpu().numpy()
+    return {"engine": engine, "waves": waves, "counts": got, "peak": peak,
+            "params": n_params, "float_emb": float_emb}
+
+
+def m_fold_repvgg(served: dict) -> None:
+    """RepVGG's deploy fold on the card: the folded model's embeddings
+    against the train layout's, in eval."""
+    import copy
+
+    import numpy as np
+    import torch
+    from speakerverification_tpu_torch.inference import make_eval_embed_fn
+    from speakerverification_tpu_torch.models.image_encoders import (
+        repvgg_reparameterize,
+    )
+    from speakerverification_tpu_torch.registry import MODELS
+    engine = served["engine"]
+    deploy = copy.deepcopy(engine.model)
+    deploy.backbone = MODELS.get("RepVGG")(nOut=256, deploy=True).to(
+        E_DEVICE)
+    deploy.backbone.load_state_dict(repvgg_reparameterize(
+        engine.model.backbone.state_dict()), strict=True)
+    got = make_eval_embed_fn(deploy)(served["waves"]).cpu().numpy()
+    want = served["float_emb"]
+    cos = cosines(got, want)
+    err = float(np.abs(got - want).max())
+    ok = bool(np.isfinite(got).all()) and cos.min() >= 0.99999
+    log(f"[M1 RepVGG deploy fold] {sum(1 for k in deploy.backbone.state_dict() if k.endswith('rbr_reparam.weight'))} "
+        f"blocks folded; embeddings vs the train layout on the card, "
+        f"{len(got)} crops: min cos {cos.min():.8f} (need >= 0.99999), "
+        f"max abs diff {err:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("path M1: RepVGG's deploy fold changes the embeddings")
+    del deploy
+    torch.cuda.empty_cache()
+
+
+def path_m1(card: str) -> dict:
+    """The five mel-image encoders at their builders' defaults, one
+    served batch each (K1 once per forward), RepVGG's deploy fold."""
+    counts = dict.fromkeys(KERNELS, 0)
+    out = {}
+    for i, (name, n_out) in enumerate(M_IMAGE.items()):
+        served = m_served("M1", m_hparams(name, n_out), 80 + i, card,
+                          {"mel_frontend": 1, "res2net_cascade": 0,
+                           "quant_matmul": 0})
+        if name == "RepVGG":
+            m_fold_repvgg(served)
+        for k, v in served["counts"].items():
+            counts[k] += v
+        out[name] = {k: served[k] for k in ("waves", "float_emb", "peak",
+                                            "params")}
+        del served
+    return {"counts": counts, "models": out}
+
+
+def path_m2(card: str) -> dict:
+    """RawNeXt, ResNeXt and RawNet3 at their defaults, one served batch
+    each (no kernel: they take the wave); RawNet3's other options on 32
+    crops each against the CPU."""
+    import numpy as np
+    import torch
+    from speakerverification_tpu_torch.inference import InferenceEngine
+    counts = dict.fromkeys(KERNELS, 0)
+    none = dict.fromkeys(KERNELS, 0)
+    out = {}
+    for i, (name, n_out) in enumerate(M_RAW.items()):
+        served = m_served("M2", m_hparams(name, n_out), 90 + i, card, none)
+        out[name] = {k: served[k] for k in ("waves", "float_emb", "peak",
+                                            "params")}
+        del served
+    for i, opts in enumerate(M_RAWNET3_OPTIONS):
+        h = m_hparams("RawNet3", 512)
+        h = {**h, "model": {**h["model"], **opts}}
+        engine = InferenceEngine(h, device=E_DEVICE)
+        randomize_bn_(engine.model, seed=95 + i)
+        waves = m_waves(h, 32, 95 + i)
+        reset_counts()
+        compare_with_cpu(engine, waves, f"M2 RawNet3 {opts}")
+        if read_counts() != none:
+            fail(f"path M2 RawNet3 {opts}: launched {read_counts()}")
+        del engine
+    torch.cuda.empty_cache()
+    return {"counts": counts, "models": out}
+
+
+def path_m3(dev, gen, card: str) -> dict:
+    """Mixed RawNet3 + ECAPA_TDNN (raw3_ecapa.yaml's keys, conv_backend
+    pallas): one served batch (K1 once, K2 three times per forward)
+    against the CPU; K2 at the ECAPA branch's shape."""
+    served = m_served("M3", MIXED_HPARAMS, 100, card,
+                      {"mel_frontend": 1, "res2net_cascade": 3,
+                       "quant_matmul": 0})
+    k2 = check_cascade_kernel(dev, gen, shapes=((128, 160),),
+                              time_every=True)
+    out = {k: served[k] for k in ("waves", "float_emb", "peak", "params",
+                                  "counts")}
+    return {**out, "k2": k2}
+
+
+def path_m4(m1: dict, m2: dict, m3: dict, dev, gen, card: str) -> dict:
+    """``quant: int8`` of every path-M model (each has a layer over JAX's
+    floors: its table), served against the plain int8 path on the CPU
+    and the float path; then K3 at every new shape, fp32 and bf16."""
+    import torch
+    counts = dict.fromkeys(KERNELS, 0)
+    cases = [(name, m_hparams(name, n), m1["models"][name], 80 + i, 1, 0)
+             for i, (name, n) in enumerate(M_IMAGE.items())]
+    cases += [(name, m_hparams(name, n), m2["models"][name], 90 + i, 0, 0)
+              for i, (name, n) in enumerate(M_RAW.items())]
+    cases.append(("Mixed", MIXED_HPARAMS, m3, 100, 1, 3))
+    empty = [name for name, *_ in cases if not m_quant_table(name)]
+    log(f"[M4] models with no layer over JAX's floors (K >= 512, N >= "
+        f"128): {empty or 'none'}")
+    for name, h, served, seed, mel, cascade in cases:
+        table = m_quant_table(name)
+        log(f"[M4 {name} int8 table] " + "; ".join(
+            f"{quant_label(s, n, torch.float32)[:-8]} x{c}"
+            for s, n, c, _ in table))
+        got = int8_served("M4", h, served["waves"], served["float_emb"],
+                          table, seed, card, mel=mel, cascade=cascade)
+        for k, v in got.items():
+            counts[k] += v
+    seen = {(s, n) for s, n, _, _ in QUANT_SHAPES + ZOO_QUANT_SHAPES}
+    new = []
+    for s, n, c, model in M_QUANT_SHAPES:
+        if (s, n) not in seen:
+            seen.add((s, n))
+            new.append((s, n, c, model))
+    rows = [check_quant_shape(dev, gen, s, n, dtype, c, model,
+                              detail=False)
+            for s, n, c, model in new
+            for dtype in (torch.float32, torch.bfloat16)]
+    for dt in ("float32", "bfloat16"):
+        mine = [r for r in rows if r["shape"].endswith(dt)]
+
+        def total(key):
+            return sum((r[key] or 0.0) * r["launches_per_forward"]
+                       for r in mine)
+        log(f"[M4 new shapes per forward {dt}] {len(mine)} shapes: K3 "
+            f"{total('ms'):.3f} ms, bound {total('bound_ms'):.3f} ms, "
+            f"_int_mm chain {total('library_ms'):.3f} ms, float layers "
+            f"{total('float_ms'):.3f} ms, plain {total('plain_ms'):.3f} ms")
+    return {"counts": counts, "k3": rows}
+
+
+def path_m5(card: str) -> dict:
+    """The 64 x 2-crop AAmSoftmax (5,994) + AdaBelief step of
+    EfficientNet-b4 and RawNeXt: the gradient by module on the card
+    against the CPU from one state (4 speakers x 2 crops, dropout off),
+    then the fp32 step timed with EfficientNet's dropout drawn on the
+    card."""
+    import torch
+    counts = dict.fromkeys(KERNELS, 0)
+    out = {}
+    for name in ("EfficientNet", "RawNeXt"):
+        h = m_hparams(name, 512)
+        cpu, _ = train_state(h, "cpu")
+        card_state, _ = train_state(h, E_DEVICE)
+        for st in (cpu, card_state):
+            dropout_off(st.model)
+        copy_state(cpu, card_state)
+        wave, label = seeded_batch(110, 4, 2, h)
+        reset_counts()
+        g_card = loss_grads(card_state, torch.from_numpy(wave).to(E_DEVICE),
+                            torch.from_numpy(label).to(E_DEVICE))
+        torch.cuda.synchronize()
+        for k, v in read_counts().items():
+            counts[k] += v
+        g_cpu = loss_grads(cpu, torch.from_numpy(wave),
+                           torch.from_numpy(label))
+        grad = module_cosines(g_card, g_cpu, _zoo_module, M_ZERO_GRAD[name])
+        low = min(v["cos"] for v in grad.values())
+        bar = M_GRAD_BAR[name]
+        ok = low >= bar
+        log(f"[M5 {name} gradient] card vs CPU at the initial state, dropout"
+            f" off, {len(grad)} modules, lowest cos {low:.7f} (bar {bar}): "
+            + json.dumps(grad) + (" ok" if ok else " FAIL"))
+        if not ok:
+            fail(f"path M5 {name}: the card's gradient disagrees with the "
+                 "CPU's")
+        del cpu, card_state
+        gen = torch.Generator(device=E_DEVICE)
+        gen.manual_seed(7)
+        reset_counts()
+        fp32 = time_steps(f"{name} fp32", h, card, tag="M5",
+                          step_args=(gen,))
+        timed = read_counts()
+        want_mel = fp32["steps"] if name in M_IMAGE else 0
+        if timed["mel_frontend"] != want_mel:
+            fail(f"path M5 {name}: K1 launched {timed['mel_frontend']} "
+                 f"times in {fp32['steps']} steps")
+        for k, v in timed.items():
+            counts[k] += v
+        out[name] = fp32
+        torch.cuda.empty_cache()
+    return {"counts": counts, **out}
+
+
+def path_m6(card: str) -> None:
+    """TDFbanks (both modes) and the eight pooling modules: one forward
+    each on the card against the CPU."""
+    import copy
+
+    import numpy as np
+    import torch
+    from speakerverification_tpu_torch.models import pooling_extra as P
+    from speakerverification_tpu_torch.models.tdfbanks import TDFbanks
+    from speakerverification_tpu_torch.weights import init_weights_
+    rng = np.random.default_rng(120)
+    waves = torch.from_numpy((0.1 * rng.normal(0, 1, (160, 32000))).astype(
+        np.float32))
+    feats = torch.from_numpy(rng.normal(0, 1, (160, 201, 192)).astype(
+        np.float32))
+    modules = [
+        ("TDFbanks learnfbanks", TDFbanks(), waves, 1e-4),
+        ("TDFbanks Fixed mvn", TDFbanks(mode="Fixed", mvn=True), waves, 1e-4),
+        ("AttentionPooling", P.AttentionPooling(192), feats, 1e-5),
+        ("MultiHeadAttentionPooling", P.MultiHeadAttentionPooling(192, 4),
+         feats, 1e-5),
+        ("DoubleMHA", P.DoubleMHA(192, 4), feats, 1e-5),
+        ("TemporalPyramidPooling", P.TemporalPyramidPooling(), feats, 1e-5),
+        ("GlobalAveragePooling", P.GlobalAveragePooling(), feats, 1e-5),
+        ("SimpleSelfAttention", P.SimpleSelfAttention(192), feats, 1e-5),
+        ("GraphAttentionLayer", P.GraphAttentionLayer(192, 128), feats, 1e-5),
+        ("GraphPool", P.GraphPool(192), feats, 1e-5),
+    ]
+    for i, (name, mod, x, rel) in enumerate(modules):
+        init_weights_(mod, torch.Generator().manual_seed(120 + i))
+        mod.eval()
+        with torch.no_grad():
+            ref = mod(x[:16]).numpy()
+            card_mod = copy.deepcopy(mod).to(E_DEVICE)
+            out = card_mod(x.to(E_DEVICE))
+            ms = cuda_ms(lambda: card_mod(x.to(E_DEVICE)), iters=5,
+                         warmup=1)
+            got = out[:16].cpu().numpy()
+        err = float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-6))
+        ok = bool(np.isfinite(out.cpu().numpy()).all()) and err <= rel
+        log(f"[M6 {name}] {tuple(x.shape)} -> {tuple(out.shape)} on the "
+            f"card in {ms:.3f} ms; 16 rows vs the CPU: rel err {err:.2e} "
+            f"(bar {rel:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"path M6 {name}: the card disagrees with the CPU")
+
+
+def path_m(dev, gen, card: str) -> dict:
+    """The twelfth slice (M1-M6): the mel-image encoders served with
+    RepVGG's fold (M1), RawNeXt, ResNeXt and RawNet3 with its options
+    (M2), Mixed RawNet3 + ECAPA_TDNN with K2 (M3), int8 of every model
+    with K3 at every new shape (M4), the EfficientNet-b4 and RawNeXt
+    train steps (M5), TDFbanks and the pooling modules (M6)."""
+    walls = {}
+
+    def timed_phase(phase, fn, *args, **kwargs):
+        t0 = time.time()
+        out = fn(*args, **kwargs)
+        walls[phase] = round(time.time() - t0, 1)
+        return out
+
+    m1 = timed_phase("M1", path_m1, card)
+    m2 = timed_phase("M2", path_m2, card)
+    m3 = timed_phase("M3", path_m3, dev, gen, card)
+    m4 = timed_phase("M4", path_m4, m1, m2, m3, dev, gen, card)
+    m5 = timed_phase("M5", path_m5, card)
+    timed_phase("M6", path_m6, card)
+    counts = {k: m1["counts"][k] + m2["counts"][k] + m3["counts"][k]
+              + m4["counts"][k] + m5["counts"][k] for k in KERNELS}
+    log(f"[M] launches over M1-M6: {counts}; wall by phase (s) {walls}, "
+        f"{sum(walls.values()):.1f} s in all")
+    int8 = sum(r[2] for r in M_QUANT_SHAPES)
+    if counts["quant_matmul"] != int8 or counts["res2net_cascade"] != 6 \
+            or counts["mel_frontend"] < 1:
+        fail(f"path M: unexpected launches {counts}")
+    return {"counts": counts, "k3": m4["k3"], "k2": m3["k2"],
+            "m5": {k: m5[k] for k in ("EfficientNet", "RawNeXt")}}
 
 
 # ----------------------------------------------------------------------
@@ -4779,6 +5249,23 @@ def zoo() -> None:
         f"{out['counts']} ({card})")
 
 
+def model_zoo() -> None:
+    """Path M alone, after the kernels' build: the quick check of the
+    twelfth slice."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_kernels()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = path_m(dev, gen, card)
+    log(f"[M] passed in {time.time() - T_START:.1f} s; launches "
+        f"{out['counts']} ({card})")
+
+
 def train_zoo() -> None:
     """Path L alone, after the kernels' build: the quick check of the
     eleventh slice."""
@@ -4840,6 +5327,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
+    global PROFILE_STEPS, LOADER_BATCHES
+    PROFILE_STEPS, LOADER_BATCHES = False, 8
     t_start = time.time()
     marks = [("start", t_start)]
 
@@ -4920,16 +5409,18 @@ def main() -> None:
     mark("J")
     tmp = Path(tempfile.mkdtemp(prefix="svtorch_train_zoo_"))
     try:
-        l_ = path_l(tmp, card)
+        l_ = path_l(tmp, card, **L_SHAMPOO_WHOLE_RUN)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     mark("L")
+    m = path_m(dev, gen, card)
+    mark("M")
     log("[wall by path] " + json.dumps(
         {n: round(t - t0, 1) for (_, t0), (n, t) in zip(marks, marks[1:])}))
     paths = {"A": a["counts"], "B": b["counts"], "C": c["counts"],
              "D": d["counts"], "E": e["counts"], "F": f["counts"],
              "G": g["counts"], "H": h["counts"], "I": i["counts"],
-             "J": j["counts"], "L": l_["counts"]}
+             "J": j["counts"], "L": l_["counts"], "M": m["counts"]}
     by_path = {k: {p: counts[k] for p, counts in paths.items()}
                for k in KERNELS}
 
@@ -4945,14 +5436,18 @@ def main() -> None:
     # K3's new shape with the most time per forward on path J (fp32)
     hot_zoo = max((r for r in j["k3"] if r["shape"].endswith("float32")),
                   key=lambda r: r["ms"] * r["launches_per_forward"])
+    # and on path M
+    hot_m = max((r for r in m["k3"] if r["shape"].endswith("float32")),
+                key=lambda r: r["ms"] * r["launches_per_forward"])
     main_shapes = {"mel_frontend": ("raw3_ecapa 8k", "raw_ecapa 16k",
                                     "raw_ecapa 16k train",
                                     "raw3_ecapa 8k train",
                                     "ecapa_tdnn 16k train",
                                     "model_plot 16k train"),
-                   "res2net_cascade": ("H128 B80 d2 float32",),
+                   "res2net_cascade": ("H128 B80 d2 float32",
+                                       "H128 B160 d2 float32"),
                    "quant_matmul": (HOT_QUANT, hot_dense["shape"],
-                                    hot_zoo["shape"])}
+                                    hot_zoo["shape"], hot_m["shape"])}
     meta = {
         "mel_frontend": ("speakerverification_tpu_torch/csrc/mel_frontend.cu",
                          "speakerverification_tpu/ops/pallas_frontend.py:68"),
@@ -4963,7 +5458,7 @@ def main() -> None:
                          "speakerverification_tpu/ops/pallas_quant.py:42"),
     }
     kernels, seen = [], set()
-    for r in k1 + k2 + k3 + i["k3"] + j["k3"]:
+    for r in k1 + k2 + k3 + i["k3"] + j["k3"] + m["k2"] + m["k3"]:
         if r["shape"] not in main_shapes[r["name"]] \
                 or (r["name"], r["shape"]) in seen:
             continue
@@ -5006,5 +5501,7 @@ if __name__ == "__main__":
         zoo()
     elif sys.argv[1:2] == ["--train-zoo"]:
         train_zoo()
+    elif sys.argv[1:2] == ["--model-zoo"]:
+        model_zoo()
     else:
         main()

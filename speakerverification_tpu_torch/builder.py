@@ -1,11 +1,11 @@
 """Build the port's objects from the YAML schema (port of ``builder.py``).
 
 Frontend config, compute dtype, the ``SpeakerEncoder`` for a registered
-model (``ECAPA_TDNN``, the ``Raw*_ECAPA*`` hybrids, the RawNet2 family,
-``Conformer`` and ``ECAPA_Conformer``, the ResNetSE, SE-ResNet and
-TitaNet families, ``Tita_ECAPA``, ``Raw_tita`` and ``Res_ECAPA``) with
-its loss head
-(``criterion``), the optimizer (``optimizer``) and the learning-rate
+model (every name of the JAX package's registry: ``ECAPA_TDNN``, the
+hybrids, the RawNet2 and RawNet3 families, the Conformer family, the
+ResNetSE, SE-ResNet and TitaNet families, the mel-image encoders and
+RawNeXt/ResNeXt), or for a list of them (``models/mixed.py``), with its
+loss head (``criterion``), the optimizer (``optimizer``) and the learning-rate
 schedule (``callbacks``). ``frontend_backend`` and
 ``model.conv_backend`` take ``'auto' | 'xla' | 'pallas'``: ``'pallas'``
 selects the port's hand-written kernel, ``'xla'`` the plain PyTorch
@@ -27,7 +27,8 @@ from speakerverification_tpu_torch.ops.specaugment import SpecAugmentConfig
 from speakerverification_tpu_torch.registry import MODELS
 
 __all__ = ["compute_dtype_from_hparams", "frontend_from_hparams",
-           "encoder_from_hparams", "build_model", "eval_normalize_from_hparams",
+           "encoder_from_hparams", "build_model", "fill_registry",
+           "eval_normalize_from_hparams",
            "optimizer_from_hparams", "scheduler_from_hparams"]
 
 _BACKENDS = ("auto", "xla", "pallas")
@@ -58,19 +59,26 @@ def frontend_from_hparams(hparams: Mapping,
     return FrontendConfig.from_hparams(dict(hparams), feature_type)
 
 
-def build_model(name: str, **kwargs):
-    # importing the model modules fills the registry
+def fill_registry() -> None:
+    """Import every model module, which registers its builders."""
     from speakerverification_tpu_torch.models import (  # noqa: F401
         conformer,
         ecapa_tdnn,
         hybrids,
         hybrids2,
+        image_encoders,
+        next as next_family,
         rawnet2,
         rawnet2_custom,
+        rawnet3,
         resnetse,
         senet,
         titanet,
     )
+
+
+def build_model(name: str, **kwargs):
+    fill_registry()
     return MODELS.get(name)(**kwargs)
 
 
@@ -88,8 +96,6 @@ def encoder_from_hparams(hparams: Mapping,
     if feature_type == "raw" and name == "ECAPA_TDNN":
         # ECAPA always consumes mel features
         feature_type = "melspectrogram"
-    if isinstance(name, (list, tuple)):
-        raise NotImplementedError("multi-encoder models are not ported yet")
     conv_backend = str(model_cfg.get("conv_backend", "xla"))
     if conv_backend not in _BACKENDS:
         raise ValueError(f"model.conv_backend must be one of {_BACKENDS}, "
@@ -101,8 +107,21 @@ def encoder_from_hparams(hparams: Mapping,
               "hop_length", "fmin", "fmax", "n_mfcc"):
         if k in hparams and k not in model_cfg:
             model_cfg[k] = hparams[k]
-    backbone = build_model(name, nOut=n_out, feature_type=feature_type,
-                           n_mels=int(hparams.get("n_mels", 80)), **model_cfg)
+    if isinstance(name, (list, tuple)):
+        # a list-valued name: the branches side by side on the wave, each
+        # featurized in-model from this config's frontend
+        from speakerverification_tpu_torch.models.mixed import (
+            build_mixed_model,
+        )
+        backbone = build_mixed_model(
+            name, nOut=n_out, feature_type=feature_type,
+            frontend=frontend_from_hparams(hparams, feature_type),
+            n_mels=int(hparams.get("n_mels", 80)), **model_cfg)
+        feature_type = "raw"
+    else:
+        backbone = build_model(name, nOut=n_out, feature_type=feature_type,
+                               n_mels=int(hparams.get("n_mels", 80)),
+                               **model_cfg)
 
     compute_dtype = compute_dtype_from_hparams(hparams)
     fe_backend = str(hparams.get("frontend_backend", "auto"))
@@ -114,12 +133,13 @@ def encoder_from_hparams(hparams: Mapping,
     if hparams.get("augment") and "spec_domain" in (
             aug_opts.get("augment_chain", []) or []):
         spec_aug = SpecAugmentConfig()
-    if hasattr(backbone, "frontend") and hasattr(backbone, "frontend_backend"):
-        # backbones that featurize in-model take the dtype, the backend
-        # and SpecAugment
-        backbone.compute_dtype = compute_dtype
-        backbone.frontend_backend = fe_backend
-        backbone.spec_augment = spec_aug
+    # backbones that featurize in-model take the dtype, the backend and
+    # SpecAugment, and so do the hybrids nested in a MixedModel
+    for m in [backbone, *getattr(backbone, "branches", ())]:
+        if hasattr(m, "frontend") and hasattr(m, "frontend_backend"):
+            m.compute_dtype = compute_dtype
+            m.frontend_backend = fe_backend
+            m.spec_augment = spec_aug
 
     loss = None
     if with_loss:

@@ -48,13 +48,15 @@ __all__ = [
 
 
 def promoted(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """``module(x)`` for a conv (1-D or 2-D) or linear layer; where x and
-    the weights differ in dtype (bf16 weights after an fp32 reduction),
+    """``module(x)`` for a conv (1-D, 2-D, transposed) or linear layer;
+    where x and the weights differ in dtype (bf16 weights after an fp32
+    reduction),
     both are promoted to the wider one first, as jnp promotes a bf16 kernel
     against an fp32 input. The module is still called (its hooks run,
     as int8 calibration's do)."""
     w = getattr(module, "weight", None)
-    if not isinstance(module, (nn.Conv1d, nn.Conv2d, nn.Linear)) \
+    if not isinstance(module, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d,
+                               nn.Linear)) \
             or w.dtype == x.dtype:
         return module(x)
     dt = torch.promote_types(x.dtype, w.dtype)

@@ -6,19 +6,26 @@ flax scope names, so a key is the flax path joined with dots; only the
 leaves change layout:
 
 * conv ``kernel [k, in, out]`` → ``weight [out, in, k]``, and a Conv2d
-  ``kernel [kh, kw, in, out]`` → ``weight [out, in, kh, kw]``;
+  ``kernel [kh, kw, in, out]`` → ``weight [out, in, kh, kw]`` (grouped
+  and depthwise ones alike: ``in`` is a group's);
+* a transposed conv (a ``ConvTranspose_*`` scope) ``kernel [k, in, out]``
+  → ``ConvTranspose1d.weight [in, out, k]`` with the tap axis flipped:
+  flax's ``nn.ConvTranspose`` does not flip its kernel, torch's does;
 * Dense ``kernel [in, out]`` → Linear ``weight [out, in]``;
 * BatchNorm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` →
   ``weight``/``bias``/``running_mean``/``running_var``; a LayerNorm
   (a ``LayerNorm_*`` scope, no statistics) ``scale``/``bias`` →
   ``weight``/``bias``;
 * ``input_norm_*``, ``inorm_*``, ``low_hz``/``band_hz``, AFMS
-  ``alpha``, ``sap_v`` and the relative attention's ``u_bias``/
-  ``v_bias`` keep their names and layouts, and so do, only
+  ``alpha``, ``sap_v``, the relative attention's ``u_bias``/
+  ``v_bias`` and TDFbanks' ``gabor_kernel`` keep their names and
+  layouts, and so do, only
   under the scopes that own them, a ``SampleLayerNorm_*``'s
   ``gamma``/``beta``, the metric heads' 0-d ``w``/``b`` and the margin
   heads' ``W``/``weight`` and proxy heads' ``proxies`` (under ``loss``,
-  or a head of it: ``loss/AAmSoftmax_0/weight``, ``loss/MMP_0/proxies``);
+  or a head of it: ``loss/AAmSoftmax_0/weight``, ``loss/MMP_0/proxies``)
+  and the attention poolings' ``v``/``u`` and the graph attention's
+  ``a_src``/``a_dst`` (``models/pooling_extra.py``);
 * a GRU cell's six Dense products (``GRUCell_0/ir``, ..., ``hn``) are
   Linears of the same names.
 
@@ -55,9 +62,11 @@ __all__ = ["params_from_jax", "params_to_jax", "init_weights_", "cast_copy",
 
 _SAME_NAME = {"alpha", "low_hz", "band_hz", "inorm_scale", "inorm_bias",
               "input_norm_scale", "input_norm_bias", "W", "sap_v", "u_bias",
-              "v_bias"}
+              "v_bias", "gabor_kernel"}
 # flax's LayerNorm scopes: ``scale``/``bias`` and no statistics
 _LAYER_NORM = re.compile(r"^(.*\.)?LayerNorm_\d+$")
+# flax's transposed convs: an unflipped ``kernel [k, in, out]``
+_CONV_T = re.compile(r"^(.*\.)?ConvTranspose_\d+$")
 # the margin heads' own matrices (AmSoftmax/ARmSoftmax/AngularPenaltySM
 # ``W [nOut, nClasses]``, AAmSoftmax ``weight [nClasses, nOut]``) at the
 # encoder's ``loss`` scope or one margin head below it (the summed
@@ -74,7 +83,10 @@ _HEAD_LEAF = re.compile(
 # ``GE2ELossV2_*``, MMP_Balance_MTL's ``MMP_0``)
 _OWNED_LEAF = re.compile(
     r"^((.*\.)?SampleLayerNorm_\d+\.)?(gamma|beta)$"
-    r"|^loss(\.(AngularProto|GE2ELossV2|MMP)_\d+)?\.(w|b)$")
+    r"|^loss(\.(AngularProto|GE2ELossV2|MMP)_\d+)?\.(w|b)$"
+    r"|^((.*\.)?(AttentionPooling|MultiHeadAttentionPooling|DoubleMHA)"
+    r"_\d+\.)?(v|u)$"
+    r"|^((.*\.)?GraphAttentionLayer_\d+\.)?(a_src|a_dst)$")
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -111,7 +123,9 @@ def params_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None,
     for path, arr in _flatten(params).items():
         scope, name = ".".join(path[:-1]), path[-1]
         key = f"{scope}.{{}}" if scope else "{}"
-        if name == "kernel" and arr.ndim == 4:
+        if name == "kernel" and arr.ndim == 3 and _CONV_T.match(scope):
+            state[key.format("weight")] = arr[::-1].transpose(1, 2, 0)
+        elif name == "kernel" and arr.ndim == 4:
             state[key.format("weight")] = arr.transpose(3, 2, 0, 1)
         elif name == "kernel" and arr.ndim == 3:
             state[key.format("weight")] = arr.transpose(2, 1, 0)
@@ -169,8 +183,13 @@ def flax_axes(key: str, ndim: int) -> tuple:
     """The permutation ``perm`` with ``flax_leaf = port_leaf.permute(perm)``
     for the parameter ``key`` (a ``state_dict`` key) of rank ``ndim``:
     a conv or Dense ``weight`` is transposed, every other leaf (the
-    heads' ``W``/``weight``/``proxies``, biases, norms) keeps its axes."""
-    name = key.rpartition(".")[2]
+    heads' ``W``/``weight``/``proxies``, biases, norms) keeps its axes.
+    A transposed conv's taps are also reversed, which no permutation
+    says; the optimizers that read these axes treat the taps of an axis
+    alike."""
+    scope, _, name = key.rpartition(".")
+    if name == "weight" and ndim == 3 and _CONV_T.match(scope):
+        return (2, 0, 1)
     if name == "weight" and ndim >= 2 and not _HEAD_LEAF.match(key):
         return _KERNEL_AXES[ndim]
     return tuple(range(ndim))
@@ -215,6 +234,9 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> tuple[dict, dict]:
             _nest(stats, f"{scope}.{name[len('running_'):]}", arr.copy())
         elif name == "weight" and (bn or _LAYER_NORM.match(scope)):
             _nest(params, f"{scope}.scale", arr.copy())
+        elif name == "weight" and arr.ndim == 3 and _CONV_T.match(scope):
+            _nest(params, f"{scope}.kernel", np.ascontiguousarray(
+                arr.transpose(2, 0, 1)[::-1]))
         elif name == "weight" and arr.ndim in _KERNEL_AXES:
             _nest(params, f"{scope}.kernel", np.ascontiguousarray(
                 arr.transpose(_KERNEL_AXES[arr.ndim])))
@@ -237,9 +259,10 @@ def _truncated_normal_(w: torch.Tensor, std: float,
 @torch.no_grad()
 def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw ``module``'s weights from ``generator`` (a CPU generator) as
-    flax initializes the JAX modules: conv (1-D, depthwise, 2-D) and
-    Dense kernels ``lecun_normal`` (a truncated normal of variance
-    1/fan_in, fan_in the taps times the in-channels of one group),
+    flax initializes the JAX modules: conv (1-D, depthwise, 2-D,
+    transposed) and Dense kernels ``lecun_normal`` (a truncated normal of
+    variance 1/fan_in, fan_in the taps times the in-channels of one
+    group),
     biases zero, BatchNorm scale 1 and bias 0 with running mean 0 and
     variance 1, LayerNorm scale 1 and bias 0, the loss heads' matrices
     (``xavier_normal_params``) ``xavier_normal``, the relative
@@ -251,8 +274,13 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     AFMS, norm and metric-head parameters keep their constructed values,
     which are flax's."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
-            fan_in = m.weight[0].numel()
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d,
+                          nn.Linear)):
+            # a transposed conv's weight is [in, out, k]: flax's fan-in
+            # is k·in
+            fan_in = (m.weight.shape[0] * m.weight.shape[2]
+                      if isinstance(m, nn.ConvTranspose1d)
+                      else m.weight[0].numel())
             _truncated_normal_(m.weight, fan_in ** -0.5, generator)
             if m.bias is not None:
                 m.bias.zero_()

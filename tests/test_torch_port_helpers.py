@@ -78,3 +78,64 @@ def nlc_to_ncl(x: np.ndarray) -> torch.Tensor:
 
 def ncl_to_nlc(x: torch.Tensor) -> np.ndarray:
     return x.detach().numpy().transpose(0, 2, 1)
+
+
+def port_variables(tm, seed: int = 0) -> dict:
+    """``tm``'s weights redrawn (seeded normals of variance 1/fan-in),
+    BatchNorm randomized, loaded back and returned as JAX variables
+    (``params_to_jax``): the JAX side needs no init of its own."""
+    from speakerverification_tpu_torch.weights import params_to_jax
+    torch.manual_seed(seed)
+    tm.load_state_dict({k: (torch.randn_like(p) / max(p[0].numel(), 1)
+                            ** 0.5 if k.endswith("weight") and p.dim() > 1
+                            else p) for k, p in tm.state_dict().items()})
+    params, stats = params_to_jax(tm.state_dict())
+    v = randomized_variables({"params": params, "batch_stats": stats}, seed)
+    tm.load_state_dict(params_from_jax(v["params"], v["batch_stats"],
+                                       like=tm), strict=True)
+    tm.eval()
+    return v
+
+
+def jax_tree_and_quant_keys(jm, x, config=None, **apply_kw):
+    """Shapes of the JAX module's init tree ``{(col, path): shape}`` and
+    the flax paths of the layers JAX's int8 rule quantizes in one apply
+    on ``x``, both from one ``jax.eval_shape`` (no compile, no FLOPs)."""
+    import flax.linen as fnn
+    from flax.traverse_util import flatten_dict as _flat
+
+    from speakerverification_tpu import quant as jq
+    cfg = config or jq.QuantConfig()
+    keys = set()
+
+    def recorder(next_fun, args, kwargs, context):
+        mod = context.module
+        if context.method_name == "__call__" and not mod.is_initializing():
+            if (jq._dense_kernel_if_quantizable(mod, args, cfg) is not None
+                    or jq._conv_kernel_if_quantizable(mod, args, cfg)
+                    is not None):
+                keys.add(jq._module_key(mod))
+        return next_fun(*args, **kwargs)
+
+    def run(x):
+        v = jm.init(jax.random.PRNGKey(0), x)
+        with fnn.intercept_methods(recorder):
+            jm.apply(v, x, **apply_kw)
+        return v
+
+    shapes = jax.eval_shape(run, x)
+    tree = {(col,) + k: tuple(a.shape) for col, t_ in shapes.items()
+            for k, a in _flat(t_).items()}
+    return tree, keys
+
+
+def port_tree(tm) -> dict:
+    """The port module's tree as ``{(col, path): shape}`` in flax's
+    layout (``params_to_jax``)."""
+    from flax.traverse_util import flatten_dict as _flat
+
+    from speakerverification_tpu_torch.weights import params_to_jax
+    params, stats = params_to_jax(tm.state_dict())
+    return {(col,) + k: tuple(a.shape)
+            for col, t_ in (("params", params), ("batch_stats", stats))
+            for k, a in _flat(t_).items()}

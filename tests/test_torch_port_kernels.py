@@ -390,3 +390,71 @@ def test_quant_matmul_checks_shapes():
         qm.quant_matmul(x, wq.float(), s_w, b, act)
     with pytest.raises(ValueError, match=r"\[M, K\]"):
         qm.quant_matmul(x[0, 0], wq, s_w, b, act)
+
+
+# path M3's cascade: the mixed model's ECAPA_TDNN branch (1024 channels,
+# H 128) at the serving batch of raw3_ecapa.yaml's keys (160 crops of
+# 2 s at 8 kHz: 201 frames)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dilation", [2, 3, 4])
+def test_cascade_kernel_at_the_mixed_models_shape(cuda, dilation, dtype):
+    x, w, cb, s, sh = _cascade_inputs(128, 201, dtype, cuda, seed=dilation,
+                                      B=160)
+    before = rc.launches
+    got = rc.res2net_cascade(x, w, cb, s, sh, dilation=dilation)
+    torch.cuda.synchronize()
+    assert rc.launches == before + 1
+    ref = rc.res2net_cascade_plain(x, w, cb, s, sh, dilation)
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    if dtype == torch.float32:
+        assert _rel_err(got, ref) <= 1e-5
+    else:
+        assert _bf16_close(got, ref)
+
+
+# K3's shapes that path M adds (x as the wrapper gets it, N): the heads of
+# the mel-image encoders, RawNeXt's and ResNeXt's wide 1-D convs (the
+# gates' [B, 512, 3] among them) and Denses, RawNet3 at 16 kHz, and the
+# mixed model's ECAPA-1024 branch; the layers that paths C and J already
+# launch are left out
+MODEL_ZOO_QUANT_SHAPES = [
+    ((160, 3584), 512), ((160, 1792), 512), ((160, 2560), 320),
+    ((160, 2560), 256), ((160, 2048), 256), ((160, 2688), 512),
+    ((160, 512, 2187), 256), ((160, 512, 729), 256), ((160, 1024, 729), 256),
+    ((160, 512, 3), 170), ((160, 512, 243), 256), ((160, 512, 81), 128),
+    ((160, 512, 729), 128), ((160, 1024, 243), 512), ((160, 1792, 243), 512),
+    ((160, 512, 81), 256), ((160, 512, 27), 128), ((160, 512, 243), 128),
+    ((160, 1536, 81), 512), ((160, 1024), 512),
+    ((160, 1024, 3175), 1024), ((160, 1024, 635), 1024),
+    ((160, 1024, 211), 1024), ((160, 3072, 211), 1536),
+    ((160, 4608, 211), 128), ((160, 3072), 512),
+    ((160, 1024, 201), 1024), ((160, 1024, 1), 128),
+    ((160, 3072, 201), 3072), ((160, 6144), 192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_shape,n", MODEL_ZOO_QUANT_SHAPES)
+def test_quant_matmul_kernel_at_the_model_zoo_shapes(cuda, x_shape, n, dtype):
+    _check_quant_kernel(_quant_inputs(x_shape, n, dtype, cuda,
+                                      seed=n + x_shape[1]))
+
+
+def test_model_zoo_shapes_are_chip_smokes_new_ones():
+    """The list above is ``chip_smoke.py``'s path-M table less the shapes
+    of paths C and J, in its order."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    seen = {(s, n) for s, n, _, _ in smoke.QUANT_SHAPES
+            + smoke.ZOO_QUANT_SHAPES}
+    new = []
+    for s, n, _, _ in smoke.M_QUANT_SHAPES:
+        if (s, n) not in seen:
+            seen.add((s, n))
+            new.append((s, n))
+    assert new == MODEL_ZOO_QUANT_SHAPES

@@ -41,13 +41,14 @@ from speakerverification_tpu_torch.models import hybrids2 as TH
 from speakerverification_tpu_torch.models import resnetse as TR
 from speakerverification_tpu_torch.models import senet as TS
 from speakerverification_tpu_torch.models import titanet as TT
-from speakerverification_tpu_torch.weights import (
-    cast_copy,
-    params_from_jax,
-    params_to_jax,
-)
+from speakerverification_tpu_torch.weights import cast_copy, params_from_jax
 
-from test_torch_port_helpers import close, randomized_variables, t
+from test_torch_port_helpers import (
+    close,
+    port_variables,
+    randomized_variables,
+    t,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -70,20 +71,11 @@ def jit_pair(jm, tm, *inputs, seed: int = 0) -> dict:
 
 
 def port_pair(tm, seed: int = 0) -> dict:
-    """The port's weights as constructed (torch's seeded default init),
-    BN randomized, as JAX variables (``params_to_jax``): one JAX compile
-    (the apply) where a JAX init adds a second; the trees' names and
-    shapes are held to JAX's init in ``test_torch_port_yamls.py``."""
-    torch.manual_seed(seed)
-    tm.load_state_dict({k: (torch.randn_like(p) / max(p[0].numel(), 1)
-                            ** 0.5 if k.endswith("weight") and p.dim() > 1
-                            else p) for k, p in tm.state_dict().items()})
-    params, stats = params_to_jax(tm.state_dict())
-    v = randomized_variables({"params": params, "batch_stats": stats}, seed)
-    tm.load_state_dict(params_from_jax(v["params"], v["batch_stats"],
-                                       like=tm), strict=True)
-    tm.eval()
-    return v
+    """The port's weights redrawn, BN randomized, as JAX variables
+    (``port_variables``): one JAX compile (the apply) where a JAX init
+    adds a second; the trees' names and shapes are held to JAX's init in
+    ``test_torch_port_yamls.py``."""
+    return port_variables(tm, seed)
 
 
 def nhwc_to_nchw(x: np.ndarray) -> torch.Tensor:
