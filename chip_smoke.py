@@ -14,6 +14,8 @@
                                        # optimizer zoos)
     python3 chip_smoke.py --model-zoo  # only path M (the rest of the
                                        # model zoo)
+    python3 chip_smoke.py --export-tools  # only path N (export, the
+                                          # feature-domain ops, the tools)
 
 Phases, each of which fails the run:
   1. build the hand-written kernels from ``speakerverification_tpu_torch/csrc``
@@ -133,7 +135,24 @@ Phases, each of which fails the run:
      path, K3 at every new shape, bit for bit and timed; M5 the 64 x
      2-crop AAmSoftmax step of EfficientNet-b4 and RawNeXt: the gradient
      by module against the CPU, the fp32 step timed; M6 TDFbanks and the
-     pooling modules against the CPU.
+     pooling modules against the CPU;
+ 16. path N: export and the tools: N1 ``--do_export`` through the CLI of
+     ``raw3_ecapa.yaml``'s keys with ``conv_backend: pallas`` (seeded
+     weights, random BN) at [20, 16,000], the program loaded in a fresh
+     process against the live engine (cosine, rtol 1e-4, atol 1e-5),
+     K1 and K2 counted among the kernels of its trace of one profiled
+     forward, and here, program and live engine timed in turns (and
+     profiled when path N runs alone), the forward's FLOPs
+     (``utils.summary.forward_flops``) as TFLOP/s, then
+     ``raw3_ecapa.yaml`` itself exported; N2 the same in bf16
+     (``--mixedprec``); N3 int8 and ONNX export refused; N4 every
+     function of ``ops/signal.py``, ``ops/features_extra.py`` and
+     ``ops/filteraugment.py``'s cores on the card against the CPU at
+     [64, 16,000] waves, 4,000-tap RIRs and [64, 201, 80] features,
+     timed, and the random ops drawing from the card's generator; N5
+     ``--list_components``, ``--sys_info`` and a 2-step first epoch of the
+     default stack with ``profile: true``, its ``trace.json`` holding the
+     K1 kernel.
 Every path is compared with the same model's plain path on the CPU.
 The whole script times its train steps without profiling them and each
 loader over its first 8 batches (``PROFILE_STEPS``, ``LOADER_BATCHES``);
@@ -4012,9 +4031,11 @@ L_ZERO_GRAD = {("MP", "b"), ("MP_Balance", "b")}
 L_SHAMPOO_CPU_AXIS = 4096
 # the whole script's L3 runs Shampoo on the head's first 2,048 classes
 # (its 13,103-class update is one ~38 s SVD) and holds the leaves with
-# every axis <= 1,024 (258 of 275) against the CPU, whose update of the
-# leaves up to 4,096 took 97 s on a slow host; ``--train-zoo`` keeps both
-L_SHAMPOO_WHOLE_RUN = {"shampoo_classes": 2048, "shampoo_cpu_axis": 1024}
+# every axis <= 512 (224 of 275: the raw branch's 1,024-wide leaves are
+# left out) against the CPU, whose update of the leaves up to 4,096 took
+# 97 s on a slow host and of those up to 1,024, with the float64 referee,
+# 22.8 s; ``--train-zoo`` keeps both
+L_SHAMPOO_WHOLE_RUN = {"shampoo_classes": 2048, "shampoo_cpu_axis": 512}
 # a divergent head's loss on the card against the CPU's (path L2): at
 # step 0, on the same weights, within this relative difference; after the
 # first step, within this factor either way (see path_l2)
@@ -5087,6 +5108,551 @@ def path_m(dev, gen, card: str) -> dict:
 
 
 # ----------------------------------------------------------------------
+# path N: export, the feature-domain ops and the tools
+# ----------------------------------------------------------------------
+# raw3_ecapa.yaml's serving keys with the cascade kernel on the hybrid's
+# ECAPA branch, so that the exported program runs K1 once and K2 3 times
+N_HPARAMS = {**RAW3_ECAPA_HPARAMS, "model": {
+    **RAW3_ECAPA_HPARAMS["model"], "conv_backend": "pallas"}}
+N_REPS = (3, 10)       # warm-up and timed forwards of each program
+# a fresh process: load the exported program, replay, write the chrome
+# trace of one profiled forward, time 10 forwards after 3; the seconds of
+# its imports, of the load and of the first forward
+N_LOAD = r"""
+import json, sys, time
+t0 = time.time()
+import numpy as np, torch
+from torch.profiler import ProfilerActivity, profile
+from speakerverification_tpu_torch.export import load_exported
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+out_dir, x_path, emb_path, trace_path, warm, reps = sys.argv[1:7]
+x = torch.from_numpy(np.load(x_path)).cuda()
+t1 = time.time()
+embed = load_exported(out_dir)
+t2 = time.time()
+emb = embed(x)
+torch.cuda.synchronize()
+t3 = time.time()
+np.save(emb_path, emb.cpu().numpy())
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    embed(x)
+    torch.cuda.synchronize()
+p.export_chrome_trace(trace_path)
+for _ in range(int(warm)):
+    embed(x)
+start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+torch.cuda.synchronize()
+start.record()
+for _ in range(int(reps)):
+    embed(x)
+end.record()
+torch.cuda.synchronize()
+print(json.dumps({"ms": start.elapsed_time(end) / int(reps),
+                  "import_s": t1 - t0, "load_s": t2 - t1,
+                  "first_s": t3 - t2}))
+"""
+
+
+def trace_kernels(trace_path, tag: str) -> int:
+    """The device kernels named ``tag`` in a chrome trace that
+    ``torch.profiler`` wrote."""
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    return sum(tag in str(e.get("name", "")) for e in events
+               if e.get("cat") == "kernel")
+
+
+def n_export_cli(tmp, tag: str, cfg: dict, args=(), path=None) -> tuple:
+    """``--do_export`` of ``cfg`` (written to a config file unless ``path``
+    names its file) through the CLI on the card: the export's seconds and
+    its directory; the self-check runs inside."""
+    import io
+    from pathlib import Path
+
+    import torch
+    from speakerverification_tpu_torch.cli.main import main as cli_main
+    if path is None:
+        path = tmp / f"{tag}.yaml"
+        path.write_text(json.dumps(cfg, indent=1))   # YAML's JSON subset
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["--do_export", "--config", str(path), *args])
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    for line in out.getvalue().splitlines():
+        log(f"[{tag} cli] {line}")
+    model = cfg["model"]["name"]
+    crit = (cfg.get("criterion") or {}).get("name", "loss")
+    out_dir = Path(cfg["save_folder"]) / model / crit / "model" / "export"
+    files = sorted(p.name for p in out_dir.iterdir()) if out_dir.exists() \
+        else []
+    if rc != 0 or files != ["config.json", "model.pt2", "params.msgpack"] \
+            or "[INFO] exported to" not in out.getvalue():
+        fail(f"path {tag}: --do_export rc {rc}, wrote {files}")
+    return secs, out_dir
+
+
+def n_turns(live, program) -> tuple:
+    """ms per forward of ``live`` and ``program`` (CUDA events, ``N_REPS``),
+    in turns: live, program, program, live."""
+    t = [cuda_ms(fn, iters=N_REPS[1], warmup=N_REPS[0])
+         for fn in (live, program, program, live)]
+    return ([round(t[0], 3), round(t[3], 3)],
+            [round(t[1], 3), round(t[2], 3)])
+
+
+def n_fresh_load(tmp, out_dir, x, tag: str) -> dict:
+    """The exported program in a process of its own: embeddings, K1's
+    and K2's kernels in the trace of one profiled forward, ms per
+    forward and the seconds of each stage."""
+    import os
+
+    import numpy as np
+    x_path, emb_path = tmp / f"{tag}_x.npy", tmp / f"{tag}_emb.npy"
+    trace = tmp / f"{tag}_forward_trace.json"
+    np.save(x_path, x)
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-c", N_LOAD, str(out_dir), str(x_path),
+         str(emb_path), str(trace), *map(str, N_REPS)], cwd=os.getcwd(),
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"path {tag}: loading the program in a fresh process failed:\n"
+             f"{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    res["emb"] = np.load(emb_path)
+    res["k1"] = trace_kernels(trace, "mel_kernel")
+    res["k2"] = trace_kernels(trace, "cascade_kernel")
+    res["wall"] = time.time() - t0
+    return res
+
+
+def path_n1(tmp, card: str) -> dict:
+    """N1: the default stack exported at full width through the CLI (seeded
+    weights, random BN), the program against the live engine in a fresh
+    process and here, its kernels counted, both timed; then
+    ``raw3_ecapa.yaml`` itself exported as it stands."""
+    import os
+
+    import numpy as np
+    import torch
+    from speakerverification_tpu_torch.export import load_exported
+    from speakerverification_tpu_torch.inference import InferenceEngine
+    from speakerverification_tpu_torch.utils.summary import forward_flops
+    weights = tmp / "n1.pt"
+    torch.save(seeded_model(70).state_dict(), weights)
+    cfg = {**N_HPARAMS, "save_folder": str(tmp / "save"),
+           "initial_model_infer": str(weights)}
+    reset_counts()
+    secs, out_dir = n_export_cli(tmp, "N1", cfg)
+    counts = read_counts()
+    pt2 = (out_dir / "model.pt2").stat().st_size
+    n, T = cfg["num_eval"], int(cfg["audio_spec"]["sentence_len"]
+                                * cfg["audio_spec"]["sample_rate"])
+    x = np.random.default_rng(71).normal(0, 0.1, (n, T)).astype(np.float32)
+    fresh = n_fresh_load(tmp, out_dir, x, "N1")
+
+    engine = InferenceEngine(cfg)
+    xt = torch.from_numpy(x).cuda()
+    live = engine._embed(xt).cpu().numpy()
+    cos = cosines(fresh["emb"], live)
+    close = np.allclose(fresh["emb"], live, rtol=1e-4, atol=1e-5)
+    ok = bool(np.isfinite(fresh["emb"]).all()) and close \
+        and cos.min() >= 0.9999999
+    log(f"[N1] Raw3_ECAPA [{n}, {T}] exported through the CLI in {secs:.1f} s "
+        f"(self-check passed), model.pt2 {pt2:,} bytes; launches in the "
+        f"export {counts}")
+    log(f"[N1] fresh process ({fresh['wall']:.1f} s: imports "
+        f"{fresh['import_s']:.1f}, load {fresh['load_s']:.1f}, first forward "
+        f"{fresh['first_s']:.1f}): min cos {cos.min():.8f} (need >= "
+        f"0.9999999), within rtol 1e-4 atol 1e-5 of the live engine: {close}; "
+        f"kernels in the trace of one profiled forward: K1 {fresh['k1']}, "
+        f"K2 {fresh['k2']} {'ok' if ok else 'FAIL'}")
+    if not ok or (fresh["k1"], fresh["k2"]) != (1, 3):
+        fail("path N1: the loaded program disagrees with the live engine or "
+             "does not run K1 once and K2 3 times a forward")
+    # here: the Python counters
+    embed = load_exported(out_dir)
+    embed(xt)
+    torch.cuda.synchronize()
+    reset_counts()
+    here = embed(xt).cpu().numpy()
+    torch.cuda.synchronize()
+    per_forward = read_counts()
+    log(f"[N1] the program loaded here: launches per forward {per_forward}")
+    if per_forward != {"mel_frontend": 1, "res2net_cascade": 3,
+                       "quant_matmul": 0} \
+            or not np.allclose(here, live, rtol=1e-4, atol=1e-5):
+        fail("path N1: the program here does not launch K1 once and K2 3 "
+             "times a forward, or strays from the live engine")
+    live_ms, program_ms = n_turns(lambda: engine._embed(xt),
+                                  lambda: embed(xt))
+    flops = forward_flops(engine._embed.module, xt)
+    log(f"[N1] ms per forward at [{n}, {T}] (CUDA events, {N_REPS[1]} after "
+        f"{N_REPS[0]}): loaded program {fresh['ms']:.3f} in its own process; "
+        f"here, in turns (live, program, program, live): live engine "
+        f"{live_ms}, program {program_ms} ({card})")
+    if PROFILE_STEPS:           # path N alone: where the gap goes
+        profile("N1 live fp32", None, None, fn=lambda: engine._embed(xt),
+                host=True)
+        profile("N1 program fp32", None, None, fn=lambda: embed(xt),
+                host=True)
+    live_ms, program_ms = min(live_ms), min(program_ms)
+    log(f"[N1] forward_flops {flops / 1e9:.2f} GFLOP per forward "
+        f"(FlopCounterMode): {flops / program_ms / 1e9:.2f} TFLOP/s achieved "
+        f"by the loaded program, {flops / live_ms / 1e9:.2f} by the live "
+        f"engine ({card})")
+    # raw3_ecapa.yaml as it stands (random weights, conv_backend xla: K1
+    # alone), its relative paths under a scratch directory
+    from speakerverification_tpu_torch.config import read_config
+    here_dir = os.getcwd()
+    yaml_path = os.path.abspath("yaml/raw3_ecapa.yaml")
+    os.chdir(tmp)
+    try:
+        reset_counts()
+        y_secs, _ = n_export_cli(tmp, "N1 yaml", read_config(yaml_path),
+                                 path=yaml_path)
+        y_counts = read_counts()
+    finally:
+        os.chdir(here_dir)
+    log(f"[N1 yaml] --do_export --config yaml/raw3_ecapa.yaml: "
+        f"{y_secs:.1f} s, launches {y_counts}")
+    if y_counts["mel_frontend"] < 2 or y_counts["res2net_cascade"] != 0:
+        fail(f"path N1: raw3_ecapa.yaml's export launched {y_counts}")
+    return {"counts": {k: counts[k] + per_forward[k] + y_counts[k]
+                       for k in KERNELS},
+            "export_s": secs, "pt2_bytes": pt2, "program_ms": program_ms,
+            "fresh_ms": fresh["ms"], "live_ms": live_ms, "flops": flops, "live": live, "x": x,
+            "cfg": cfg}
+
+
+def path_n2(tmp, n1: dict, card: str) -> dict:
+    """N2: the same export in bf16 (``--mixedprec``: K2's bf16 route),
+    held to the fp32 engine at path C's bf16 bar."""
+    import numpy as np
+    import torch
+    from speakerverification_tpu_torch.export import load_exported
+    from speakerverification_tpu_torch.inference import InferenceEngine
+    cfg = {**n1["cfg"], "save_folder": str(tmp / "save_bf16")}
+    reset_counts()
+    secs, out_dir = n_export_cli(tmp, "N2", cfg, ("--mixedprec",))
+    counts = read_counts()
+    embed = load_exported(out_dir)
+    xt = torch.from_numpy(n1["x"]).cuda()
+    embed(xt)
+    torch.cuda.synchronize()
+    reset_counts()
+    got = embed(xt).cpu().numpy()
+    torch.cuda.synchronize()
+    per_forward = read_counts()
+    engine = InferenceEngine({**cfg, "mixedprec": True})
+    live_ms, program_ms = n_turns(lambda: engine._embed(xt),
+                                  lambda: embed(xt))
+    if PROFILE_STEPS:
+        profile("N2 live bf16", None, None, fn=lambda: engine._embed(xt),
+                host=True)
+        profile("N2 program bf16", None, None, fn=lambda: embed(xt),
+                host=True)
+    live_ms, ms = min(live_ms), min(program_ms)
+    cos = cosines(got, n1["live"])
+    ok = bool(np.isfinite(got).all()) and cos.min() >= 0.99 and \
+        per_forward == {"mel_frontend": 1, "res2net_cascade": 3,
+                        "quant_matmul": 0}
+    log(f"[N2] bf16 export through the CLI in {secs:.1f} s (self-check "
+        f"passed), {(out_dir / 'model.pt2').stat().st_size:,} bytes; ms "
+        f"per forward in turns: the program {program_ms}, the live bf16 "
+        f"engine {live_ms} ({card}), launches {per_forward}; "
+        f"against the fp32 engine min cos {cos.min():.5f}, mean "
+        f"{cos.mean():.5f} (need >= 0.99) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("path N2: the bf16 program strays or misses its kernels")
+    return {"counts": {k: counts[k] + per_forward[k] for k in KERNELS},
+            "export_s": secs, "program_ms": ms, "live_ms": live_ms}
+
+
+def path_n3() -> None:
+    """N3: int8 export refused by name (C.15), ONNX refused."""
+    from speakerverification_tpu_torch.export import export_model, export_onnx
+    for fn, args, errors, word in (
+            (export_model, ({**N_HPARAMS, "quant": "int8"},),
+             (NotImplementedError,), "C.15"),
+            (export_onnx, ({},), (RuntimeError, NotImplementedError),
+             "ONNX")):
+        try:
+            fn(*args)
+        except errors as exc:
+            if word not in str(exc):
+                fail(f"path N3: {fn.__name__} refused without naming {word}")
+            log(f"[N3] {fn.__name__} refused: {str(exc)[:90]}...")
+        else:
+            fail(f"path N3: {fn.__name__} did not refuse")
+
+
+def n_feature_cases(dev):
+    """(name, fn, inputs on the CPU, relative tolerance): every function of
+    ops/signal.py, ops/features_extra.py and ops/filteraugment.py's cores
+    at the sizes users feed them (waves [64, 16,000] with RIRs of 4,000
+    taps, features [64, 201, 80], istft at the 8 kHz frontend's n_fft),
+    each core with one set of draws for both devices."""
+    import numpy as np
+    import torch
+    from speakerverification_tpu_torch.ops import features_extra as fx
+    from speakerverification_tpu_torch.ops import filteraugment as fa
+    from speakerverification_tpu_torch.ops import signal as sg
+    from speakerverification_tpu_torch.ops.frontend import (
+        FrontendConfig,
+        dft_matrices,
+    )
+    rng = np.random.default_rng(80)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32))
+
+    B, T, nf, F = 64, 16000, 201, 80
+    wave = t(rng.normal(0, 0.1, (B, T)))
+    decay = np.exp(-np.arange(4000) / 600.0)
+    rir = t(rng.normal(size=(B, 4000)) * decay)
+    feats = t(rng.normal(2.0, 1.0, (B, nf, F)))
+    power = t(rng.uniform(0, 1, (B, nf, F)) ** 6)
+    cfg = FrontendConfig(pre_emphasis=None)
+    cos_b, sin_b = dft_matrices(cfg.n_fft, cfg.win_length, cfg.window)
+    pad = cfg.n_fft // 2
+    frames = torch.nn.functional.pad(wave[:, None], (pad, pad),
+                                     mode="reflect")[:, 0].unfold(
+                                         -1, cfg.n_fft, cfg.hop_length)
+    real, imag = frames @ t(cos_b), frames @ t(sin_b)
+    dbs = t(rng.uniform(-60, 10, (B, T)))
+    rot = torch.from_numpy(rng.integers(0, T, B))
+    kernel = sg.notch_filter(0.25, 101)
+    n_t = torch.arange(-200, 201, dtype=torch.float32)
+    center, fwhm = t(rng.uniform(0.05, 3.0, F)), t(rng.uniform(2, 40, F))
+    shifts = torch.from_numpy((rng.normal(0, 90, B)).astype(np.int32))
+    perm = torch.from_numpy(rng.permutation(B))
+    widths = torch.from_numpy(rng.integers(1, 5, B))
+    starts = torch.from_numpy(rng.integers(0, F - 5, B))
+    lin = (4, torch.from_numpy(rng.integers(0, 40, 4)),
+           t(rng.uniform(-6, 6, (B, 6))))
+    step = (3, torch.from_numpy(rng.integers(0, 60, 3)),
+            t(rng.uniform(-6, 6, (B, 4))))
+    proto = (3, torch.from_numpy(rng.integers(1, F - 1, 3)),
+             t(rng.uniform(-7.5, 6, (B, 4))))
+    snr = t(rng.uniform(15, 30, (B, 1, 1)))
+    noise = t(rng.normal(size=(B, nf, F)))
+    return [
+        ("compute_amplitude avg", lambda w: sg.compute_amplitude(w), (wave,),
+         1e-5),
+        ("compute_amplitude peak dB", lambda w: sg.compute_amplitude(
+            w, amp_type="peak", scale="dB"), (wave,), 1e-5),
+        ("normalize_amplitude", sg.normalize_amplitude, (wave,), 1e-5),
+        ("rescale -12 dB", lambda w: sg.rescale(w, -12.0, scale="dB"),
+         (wave,), 1e-5),
+        ("db_to_amplitude", sg.db_to_amplitude, (dbs,), 1e-5),
+        ("amplitude_to_db", sg.amplitude_to_db, (wave,), 1e-5),
+        ("convolve1d fft, per-row rotation", lambda w, k, r: sg.convolve1d(
+            w, k, use_fft=True, rotation_index=r), (wave, rir, rot), 1e-4),
+        ("convolve1d direct, notch 101", lambda w, k: sg.convolve1d(
+            w, k, padding=50, use_fft=False), (wave, kernel), 1e-5),
+        ("reverberate, RIR 4000", sg.reverberate, (wave, rir), 1e-4),
+        ("notch_filter 101", lambda d: sg.notch_filter(0.25, 101,
+                                                       device=d.device),
+         (torch.zeros(1),), 1e-5),
+        ("overlap_and_add [64, 201, 512]", lambda f: sg.overlap_and_add(
+            f, 80), (frames,), 1e-5),
+        ("gabor_impulse_response [80, 401]", sg.gabor_impulse_response,
+         (n_t, center, fwhm), 1e-5),
+        ("deltas", fx.deltas, (feats,), 1e-5),
+        ("context_window 5+5", fx.context_window, (feats,), 0.0),
+        ("istft n_fft 512 hop 80", lambda r, i: fx.istft(r, i, cfg),
+         (real, imag), 1e-5),
+        ("speechbrain_log_fbank", fx.speechbrain_log_fbank, (power,), 1e-5),
+        ("frame_shift_apply", fa.frame_shift_apply, (feats, shifts), 0.0),
+        ("mixup_apply", lambda x, p: fa.mixup_apply(x, p, 0.3),
+         (feats, perm), 1e-6),
+        ("time_mask_apply", lambda x: fa.time_mask_apply(x, 15, 40),
+         (feats,), 0.0),
+        ("filt_aug_apply linear", lambda x, r, g: fa.filt_aug_apply(
+            x, lin[0], r, g), (feats, lin[1], lin[2]), 1e-5),
+        ("filt_aug_apply step", lambda x, r, g: fa.filt_aug_apply(
+            x, step[0], r, g, 4, "step"), (feats, step[1], step[2]), 1e-5),
+        ("filt_aug_prototype_apply", lambda x, r, g:
+         fa.filt_aug_prototype_apply(x, proto[0], r, g),
+         (feats, proto[1], proto[2]), 1e-5),
+        ("freq_mask_apply", fa.freq_mask_apply, (feats, widths, starts),
+         0.0),
+        ("add_noise_apply", fa.add_noise_apply, (feats, snr, noise), 1e-5),
+    ]
+
+
+def path_n4(card: str) -> list:
+    """N4: the feature-domain ops on the card against the same call on the
+    CPU, each timed; the random ops drawing from a generator on the card."""
+    import torch
+    from speakerverification_tpu_torch.ops import filteraugment as fa
+    dev = torch.device("cuda", 0)
+    rows = []
+    for name, fn, args, tol in n_feature_cases(dev):
+        ref = fn(*args)
+        on_dev = [a.to(dev) for a in args]
+        got = fn(*on_dev)
+        torch.cuda.synchronize()
+        if got.device.type != "cuda" or got.shape != ref.shape:
+            fail(f"path N4: {name} gave {got.shape} on {got.device}")
+        diff = (got.cpu() - ref).abs().max().item()
+        scale = max(ref.abs().max().item(), 1e-6)
+        ms = cuda_ms(lambda: fn(*on_dev), iters=10, warmup=2)
+        ok = diff <= tol * scale and bool(torch.isfinite(got).all())
+        rows.append({"op": name, "ms": round(ms, 4),
+                     "max_abs_err": diff, "rel_err": diff / scale})
+        log(f"[N4] {name:38s} {ms:8.4f} ms on the card, largest error "
+            f"{diff:.3e} ({diff / scale:.2e} of max|ref|, need <= {tol:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"path N4: {name} on the card disagrees with the CPU")
+    gen = torch.Generator(device=dev).manual_seed(81)
+    x = torch.randn(64, 201, 80, device=dev, generator=gen) + 2.0
+    for name, op in (("frame_shift", fa.frame_shift), ("mixup", fa.mixup),
+                     ("time_mask", fa.time_mask), ("filt_aug", fa.filt_aug),
+                     ("filt_aug_prototype", fa.filt_aug_prototype),
+                     ("freq_mask", fa.freq_mask), ("add_noise", fa.add_noise),
+                     ("feature_transformation", lambda g, y: torch.stack(
+                         fa.feature_transformation(g, y, 2,
+                                                   (True, True, True))))):
+        y = op(gen, x)
+        ms = cuda_ms(lambda: op(gen, x), iters=10, warmup=2)
+        if y.shape[-3:] != x.shape or not bool(torch.isfinite(y).all()):
+            fail(f"path N4: {name} with the card's generator gave {y.shape}")
+        log(f"[N4] {name:38s} {ms:8.4f} ms on the card (draws included)")
+        rows.append({"op": name + " (draws)", "ms": round(ms, 4)})
+    log(f"[N4 table] {json.dumps(rows)} ({card})")
+    return rows
+
+
+def path_n5(tmp, n1: dict, card: str) -> dict:
+    """N5: ``--list_components`` and ``--sys_info`` through the CLI, then a
+    2-step first epoch of the default stack with ``profile: true``."""
+    import io
+
+    import torch
+    from speakerverification_tpu_torch.cli.main import main as cli_main
+    for args, want in ((["--list_components"], 4), (["--sys_info"], None)):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(args)
+        text = out.getvalue()
+        if rc != 0:
+            fail(f"path N5: {args[0]} exited {rc}")
+        if want is not None:
+            lines = text.strip().splitlines()
+            if len(lines) != want:
+                fail(f"path N5: {args[0]} printed {len(lines)} lines")
+            log(f"[N5] {args[0]}: " + "; ".join(ln.split(':')[0]
+                                               for ln in lines))
+        else:
+            limit = card.split(",")[-1].strip()
+            if torch.cuda.get_device_name(0) not in text or limit not in text:
+                fail(f"path N5: --sys_info lacks the card ({card})")
+            for line in text.splitlines():
+                if any(k in line for k in ("torch_version", "cuda_version",
+                                           "devices", "gpus")):
+                    log(f"[N5 sys_info] {line.strip()}")
+    # the trainer's profile: a first epoch of 2 steps (64 speakers, 3
+    # WAVs each, 32 x 2 crops a step)
+    h = RAW3_TRAIN_HPARAMS
+    trials, _ = write_train_corpus(tmp / "n5", h["audio_spec"]["sample_rate"],
+                                   n_spk=64, n_utt=3)
+    prof_dir = tmp / "n5" / "profile"
+    cfg = {**h, "number_of_epochs": 1, "save_folder": str(tmp / "n5" / "save"),
+           "data_folder": str(tmp / "n5" / "data"),
+           "train_annotation": str(tmp / "n5" / "meta" / "train.csv"),
+           "evaluation_file": str(trials), "pretrained": {"use": False},
+           "profile": True, "profile_dir": str(prof_dir)}
+    path = tmp / "n5" / "train.yaml"
+    path.write_text(json.dumps(cfg, indent=1))
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["--do_train", "--config", str(path)])
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    counts = read_counts()
+    text = out.getvalue()
+    trace = prof_dir / "trace.json"
+    if rc != 0 or f"profiler trace written to {prof_dir}" not in text \
+            or not trace.exists():
+        fail(f"path N5: --do_train with profile rc {rc}:\n{text[-2000:]}")
+    # the trace names K1; late in a long process the profiler may miss
+    # some of the ctypes libraries' kernels (1 of 2 in one whole run), so
+    # it is not held to the launch count
+    k1 = trace_kernels(trace, "mel_kernel")
+    log(f"[N5] --do_train, profile: true: {secs:.1f} s, launches {counts}; "
+        f"trace.json {trace.stat().st_size:,} bytes, K1 kernel events {k1} "
+        f"({card})")
+    if k1 < 1 or counts["mel_frontend"] != 2:
+        fail(f"path N5: trace.json holds {k1} K1 kernels for "
+             f"{counts['mel_frontend']} launches")
+    return {"counts": counts}
+
+
+def path_n(tmp, card: str) -> dict:
+    """The thirteenth slice (N1-N5): export through torch.export with K1
+    and K2 as registered operators, the feature-domain ops, the tools."""
+    walls = {}
+
+    def timed_phase(phase, fn, *args, **kwargs):
+        t0 = time.time()
+        out = fn(*args, **kwargs)
+        walls[phase] = round(time.time() - t0, 1)
+        return out
+
+    n1 = timed_phase("N1", path_n1, tmp, card)
+    n2 = timed_phase("N2", path_n2, tmp, n1, card)
+    timed_phase("N3", path_n3)
+    n4 = timed_phase("N4", path_n4, card)
+    n5 = timed_phase("N5", path_n5, tmp, n1, card)
+    counts = {k: n1["counts"][k] + n2["counts"][k] + n5["counts"][k]
+              for k in KERNELS}
+    log(f"[N] launches over N1-N5: {counts}; wall by phase (s) {walls}, "
+        f"{sum(walls.values()):.1f} s in all")
+    log("[N table] " + json.dumps({
+        "card": card, "export_s": round(n1["export_s"], 1),
+        "pt2_bytes": n1["pt2_bytes"], "program_ms": n1["program_ms"],
+        "fresh_program_ms": n1["fresh_ms"], "live_ms": n1["live_ms"], "gflop_per_forward": n1["flops"] / 1e9,
+        "program_tflops": n1["flops"] / n1["program_ms"] / 1e9,
+        "bf16_export_s": round(n2["export_s"], 1),
+        "bf16_program_ms": n2["program_ms"],
+        "bf16_live_ms": n2["live_ms"], "walls": walls}))
+    if counts["mel_frontend"] < 1 or counts["res2net_cascade"] < 3 \
+            or counts["quant_matmul"] != 0:
+        fail(f"path N: unexpected launches {counts}")
+    return {"counts": counts, "feature_ops": n4}
+
+
+def export_tools() -> None:
+    """Path N alone, after the kernels' build: the quick check of the
+    thirteenth slice."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_kernels()
+    tmp = Path(tempfile.mkdtemp(prefix="svtorch_export_"))
+    try:
+        out = path_n(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[N] passed in {time.time() - T_START:.1f} s; launches "
+        f"{out['counts']} ({card})")
+
+
+# ----------------------------------------------------------------------
 # F2's fp32 convolution gradient: remedies side by side (--f2-conv)
 # ----------------------------------------------------------------------
 # each in a process of its own: cuDNN's algorithm cache, its workspace
@@ -5415,12 +5981,19 @@ def main() -> None:
     mark("L")
     m = path_m(dev, gen, card)
     mark("M")
+    tmp = Path(tempfile.mkdtemp(prefix="svtorch_export_"))
+    try:
+        n = path_n(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    mark("N")
     log("[wall by path] " + json.dumps(
         {n: round(t - t0, 1) for (_, t0), (n, t) in zip(marks, marks[1:])}))
     paths = {"A": a["counts"], "B": b["counts"], "C": c["counts"],
              "D": d["counts"], "E": e["counts"], "F": f["counts"],
              "G": g["counts"], "H": h["counts"], "I": i["counts"],
-             "J": j["counts"], "L": l_["counts"], "M": m["counts"]}
+             "J": j["counts"], "L": l_["counts"], "M": m["counts"],
+             "N": n["counts"]}
     by_path = {k: {p: counts[k] for p, counts in paths.items()}
                for k in KERNELS}
 
@@ -5503,5 +6076,7 @@ if __name__ == "__main__":
         train_zoo()
     elif sys.argv[1:2] == ["--model-zoo"]:
         model_zoo()
+    elif sys.argv[1:2] == ["--export-tools"]:
+        export_tools()
     else:
         main()

@@ -6,6 +6,9 @@
     python -m speakerverification_tpu_torch.cli.main --do_infer --test --config y.yaml
     python -m speakerverification_tpu_torch.cli.main --do_infer --predict a.wav b.wav --config y.yaml
     python -m speakerverification_tpu_torch.cli.main --do_serve --config y.yaml
+    python -m speakerverification_tpu_torch.cli.main --do_export --config y.yaml
+    python -m speakerverification_tpu_torch.cli.main --list_components
+    python -m speakerverification_tpu_torch.cli.main --sys_info
 
 Every verb runs on CUDA unless ``--device cpu`` is given. Flags that are
 not mode flags override the YAML key of the same name (so ``--prepare``
@@ -15,8 +18,13 @@ eval, test, predict); with none of them it exits 2. The resolved config
 is frozen into the run's ``config/config_frozen.yaml``. ``--do_train``
 trains on one device (the manifests are generated from ``data_folder``
 when ``train_annotation`` is missing; ``--augment`` turns on the yaml's
-``augment_options``); ``--distributed``, ``--data_parallel`` and
-``--model_parallel`` are not ported and exit 2, as does ``--do_export``.
+``augment_options``). ``--do_export`` writes the ``torch.export``
+program, the JAX-layout weights and the config to the run's
+``model/export/`` (``export.py``; ``quant: int8`` is refused).
+``--list_components`` prints the four registries and ``--sys_info`` the
+host, torch, CUDA and the devices; neither needs ``--config``.
+``--distributed``, ``--data_parallel`` and ``--model_parallel`` are not
+ported and exit 2.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ from speakerverification_tpu_torch.config import dump_config, read_config
 # key ``prepare`` selects cohorts or embed, the ``--prepare`` flag runs it)
 _MODE_FLAGS = {"config", "do_train", "do_infer", "do_export", "do_serve",
                "serve_host", "serve_port", "eval", "test", "prepare",
-               "predict", "device"}
+               "predict", "device", "sys_info", "list_components"}
 
 
 _REFUSED_FLAGS = ("distributed", "data_parallel")
@@ -86,6 +94,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--early_stopping", action="store_true", default=None)
     p.add_argument("--augment", action="store_true", default=None,
                    help="train with the yaml's augment_options")
+    p.add_argument("--sys_info", action="store_true",
+                   help="print the host, torch, CUDA and the devices")
+    p.add_argument("--list_components", action="store_true",
+                   help="print every registered model/loss/optimizer/"
+                        "scheduler name and exit")
     # the JAX CLI's multi-device flags: not ported
     for flag in _REFUSED_FLAGS:
         p.add_argument(f"--{flag}", action="store_true", default=None)
@@ -124,10 +137,34 @@ def ensure_metadata(hparams: dict) -> None:
     print(f"[INFO] generated metadata: {stats}")
 
 
+def list_components() -> list[str]:
+    """One line per registry, as the JAX CLI prints them."""
+    from speakerverification_tpu_torch.builder import fill_registry
+    from speakerverification_tpu_torch.losses import LOSSES
+    from speakerverification_tpu_torch.optim import OPTIMIZERS
+    from speakerverification_tpu_torch.registry import MODELS, SCHEDULERS
+    fill_registry()
+    lines = []
+    for title, reg in (("models", MODELS), ("losses", LOSSES),
+                       ("optimizers", OPTIMIZERS),
+                       ("schedulers", SCHEDULERS)):
+        names = sorted(reg.names())
+        lines.append(f"{title} ({len(names)}): {', '.join(names)}")
+    return lines
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.do_export:
-        return _not_ported("--do_export")
+    if args.list_components:
+        print("\n".join(list_components()))
+        return 0
+    if args.sys_info:
+        from speakerverification_tpu_torch.utils.sysinfo import (
+            format_sys_information,
+        )
+        print(format_sys_information())
+        if not args.config:
+            return 0
     for flag in _REFUSED_FLAGS:
         if getattr(args, flag):
             return _not_ported(f"--{flag}")
@@ -164,6 +201,11 @@ def main(argv=None) -> int:
             print(f"[RESULT] predict: {name} {score:.6f}")
         return 0
 
+    if args.do_export:
+        from speakerverification_tpu_torch.export import export_model
+        export_model(hparams, device=args.device)
+        return 0
+
     if args.do_serve:
         from speakerverification_tpu_torch.serving import serve
         serving = hparams.get("serving") or {}
@@ -172,8 +214,8 @@ def main(argv=None) -> int:
               device=args.device)
         return 0
 
-    print("nothing to do: pass --do_train, --do_infer or --do_serve",
-          file=sys.stderr)
+    print("nothing to do: pass --do_train, --do_infer, --do_export or "
+          "--do_serve", file=sys.stderr)
     return 2
 
 

@@ -1,17 +1,19 @@
-"""Decision-run reports and the false-accept / false-reject pair dumps
-(port of ``fbeta_score``, ``classification_report`` and
-``dump_fa_fr_pairs`` from ``evaluation/reports.py``; pure numpy, the
-report text the same character for character). ``evaluate_result`` is
-not ported yet."""
+"""Decision-run reports: a decisions file against the truth, the
+false-accept / false-reject pair dumps, the classification report and
+F-beta (port of ``evaluation/reports.py``: ``evaluate_result``,
+``fbeta_score``, ``classification_report`` and ``dump_fa_fr_pairs``;
+pure numpy, the report text the same character for character)."""
 
 from __future__ import annotations
 
+import csv
 from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
 
-__all__ = ["classification_report", "fbeta_score", "dump_fa_fr_pairs"]
+__all__ = ["classification_report", "fbeta_score", "evaluate_result",
+           "dump_fa_fr_pairs"]
 
 
 def _counts(y_true, y_pred, cls):
@@ -67,6 +69,71 @@ def classification_report(y_true, y_pred,
     lines.append(f"{'accuracy':<{w}}{'':>20}{acc:>10.{digits}f}"
                  f"{len(y_true):>10}")
     return "\n".join(lines)
+
+
+def _read_pairs(path, as_truth: bool) -> dict:
+    """``{(file1, file2): label}`` of a truth file (``label file1
+    file2``) or a decisions file: the port's ``pred score file1 file2``
+    or the reference's CSV ``file1,file2,pred``. A header line is
+    skipped."""
+    data = {}
+    with open(path, newline="") as f:
+        first = f.readline()
+        delim = "," if "," in first else " "
+        f.seek(0)
+        for row in csv.reader(f, delimiter=delim):
+            row = [r for r in row if r != ""]
+            if len(row) < 3:
+                continue
+            try:
+                if as_truth:
+                    data[(row[-2], row[-1])] = int(row[0])
+                elif row[0].isdigit() and len(row) >= 4:
+                    data[(row[-2], row[-1])] = int(row[0])
+                else:
+                    data[(row[0], row[1])] = int(row[2])
+            except ValueError:
+                continue
+    return data
+
+
+def evaluate_result(com_path: str | Path, ref_path: str | Path,
+                    beta_values: Sequence[float] = (0.5, 2),
+                    save_cm: Optional[str | Path] = None) -> dict:
+    """Compare a decisions file with a truth file (src/inference.py:330-408).
+
+    Pairs are matched by their ``(file1, file2)`` key. Returns the pair
+    counts, accuracy, TPR/FNR/FPR/TNR, the classification report and
+    F-beta at each ``beta_values``; ``save_cm`` writes the confusion
+    matrix there (``utils.plotting``, which needs matplotlib)."""
+    ref = _read_pairs(ref_path, as_truth=True)
+    com = _read_pairs(com_path, as_truth=False)
+    keys = [k for k in ref if k in com]
+    if not keys:
+        raise ValueError("no matching trial pairs between files")
+    y_true = [ref[k] for k in keys]
+    y_pred = [com[k] for k in keys]
+
+    tp, fp, fn = _counts(y_true, y_pred, 1)
+    tn = len(keys) - tp - fp - fn
+    tpr = tp / (tp + fn) if tp + fn else 0.0
+    fpr = fp / (fp + tn) if fp + tn else 0.0
+    report = {
+        "n_pairs": len(keys),
+        "n_matched": len(keys),
+        "n_unmatched": len(ref) - len(keys),
+        "accuracy": float(np.mean(np.asarray(y_true) == np.asarray(y_pred))),
+        "tpr": tpr, "fnr": 1 - tpr, "fpr": fpr, "tnr": 1 - fpr,
+        "classification_report": classification_report(
+            y_true, y_pred, ["Label '0'", "Label '1'"]),
+        "fbeta": {b: fbeta_score(y_true, y_pred, b) for b in beta_values},
+    }
+    if save_cm:
+        from speakerverification_tpu_torch.utils.plotting import (
+            plot_confusion_matrix,
+        )
+        plot_confusion_matrix(y_true, y_pred, save_cm)
+    return report
 
 
 def dump_fa_fr_pairs(scores, labels, trials, threshold: float,

@@ -69,7 +69,7 @@ from speakerverification_tpu_torch.weights import (
     params_to_jax,
 )
 
-__all__ = ["InferenceEngine", "inference", "make_eval_embed_fn",
+__all__ = ["EvalEmbed", "InferenceEngine", "inference", "make_eval_embed_fn",
            "resolve_device", "run_dirs"]
 
 
@@ -118,6 +118,23 @@ def _select_weights(hparams: Mapping, model_dir: Path) -> Optional[Path]:
     return epochs[-1] if epochs else None
 
 
+class EvalEmbed(nn.Module):
+    """``wave [B, T]`` fp32 -> embeddings ``[B, D]`` fp32, L2-normalized
+    when ``normalize``: the eval forward that :func:`make_eval_embed_fn`
+    runs and ``export.export_model`` exports."""
+
+    def __init__(self, model: nn.Module, normalize: bool = True):
+        super().__init__()
+        self.model = model
+        self.normalize = normalize
+
+    def forward(self, wave: torch.Tensor) -> torch.Tensor:
+        emb = self.model(wave).float()
+        if self.normalize:
+            emb = emb / torch.clamp(emb.norm(dim=-1, keepdim=True), min=1e-12)
+        return emb
+
+
 def make_eval_embed_fn(model: nn.Module, normalize: bool = True,
                        compute_dtype: Optional[torch.dtype] = None) -> Callable:
     """Build ``embed(wave [B, T]) -> [B, D]`` fp32 on the model's device.
@@ -126,22 +143,22 @@ def make_eval_embed_fn(model: nn.Module, normalize: bool = True,
     device. With ``compute_dtype`` the parameters (not the BatchNorm
     statistics) of a copy of the model are cast to it; the frontend
     stays fp32 either way. Embeddings are L2-normalized when
-    ``normalize`` (the loss head's ``test_normalize``)."""
+    ``normalize`` (the loss head's ``test_normalize``). The function's
+    ``module`` attribute is the :class:`EvalEmbed` it runs."""
     if compute_dtype is not None:
         model = cast_copy(model, compute_dtype)
     model.eval()
     device = next(model.parameters()).device
+    module = EvalEmbed(model, normalize).eval()
 
     @torch.inference_mode()
     def embed(wave) -> torch.Tensor:
         wave = torch.as_tensor(wave).to(device, non_blocking=True)
         if wave.dtype == torch.int16:
             wave = wave.float() * (1.0 / 32768.0)
-        emb = model(wave).float()
-        if normalize:
-            emb = emb / torch.clamp(emb.norm(dim=-1, keepdim=True), min=1e-12)
-        return emb
+        return module(wave)
 
+    embed.module = module
     return embed
 
 

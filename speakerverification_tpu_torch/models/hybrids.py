@@ -10,7 +10,10 @@ instance norm on). In training, with ``spec_augment`` set (the builder
 sets it when ``augment_chain`` has ``spec_domain``), the mel features go
 through SpecAugment before the cast, drawn from the generator that
 ``forward`` is given. Its Res2Net cascade runs as plain convs, as in the
-JAX hybrid, which does not thread ``conv_backend`` into that branch. The
+JAX hybrid, which does not thread ``conv_backend`` into that branch;
+``Raw3_ECAPA`` alone takes ``model.conv_backend`` for it (default
+``'xla'``, JAX's behaviour), so that its eval forward, and the program
+``export.py`` writes, can run the cascade kernel K2. The
 yaml key ``model.remat`` reaches the ECAPA branch, which then recomputes
 its SE-Res2Net blocks in the backward pass.
 """
@@ -92,10 +95,11 @@ class RawECAPAHybrid(nn.Module):
         return torch.cat([out1, out2], dim=-1)
 
 
-def _hybrid_ecapa(n_mels: int, input_norm: bool,
-                  remat: bool = False) -> ECAPA_TDNN:
+def _hybrid_ecapa(n_mels: int, input_norm: bool, remat: bool = False,
+                  conv_backend: str = "xla") -> ECAPA_TDNN:
     return ECAPA_TDNN(n_mels=n_mels, lin_neurons=192,
                       channels=(512, 512, 512, 512, 1536),
+                      conv_backend=conv_backend,
                       feature_type="melspectrogram",
                       log_input=False, input_norm=input_norm, remat=remat)
 
@@ -108,8 +112,11 @@ def build_raw3_ecapa(nOut: int = 512, **kwargs) -> RawECAPAHybrid:
     raw = RawNet3(nOut=nOut - 192, C=int(kwargs.get("C", 1024)),
                   model_scale=8, sinc_stride=10, sample_rate=cfg.sample_rate)
     return RawECAPAHybrid(raw_branch=raw,
-                          ecapa=_hybrid_ecapa(cfg.n_mels, input_norm=True,
-                                              remat=bool(kwargs.get("remat"))),
+                          ecapa=_hybrid_ecapa(
+                              cfg.n_mels, input_norm=True,
+                              remat=bool(kwargs.get("remat")),
+                              conv_backend=str(kwargs.get("conv_backend",
+                                                          "xla"))),
                           frontend=cfg)
 
 

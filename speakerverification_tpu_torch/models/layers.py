@@ -38,6 +38,7 @@ __all__ = [
     "Dropout",
     "bn_module",
     "Conv1d",
+    "folded_constants",
     "BatchNorm1d",
     "TDNNBlock",
     "Res2NetBlock",
@@ -247,6 +248,7 @@ class Res2NetBlock(nn.Module):
         self.kernel_size, self.dilation, self.backend = kernel_size, dilation, backend
         hidden = features // scale
         self._folded = None   # (state key, folded weights): see folded()
+        self._frozen = False  # see folded_constants()
         for j in range(scale - 1):
             self.add_module(f"TDNNBlock_{j}", TDNNBlock(
                 hidden, hidden, kernel_size, dilation, activation=torch.relu))
@@ -306,7 +308,7 @@ class Res2NetBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self._use_fused(x):
-            w, cb, s, b = self.folded()
+            w, cb, s, b = self._folded[1] if self._frozen else self.folded()
             return res2net_cascade(x.contiguous(), w, cb, s, b,
                                    dilation=self.dilation)
         chunks = torch.chunk(x, self.scale, dim=1)
@@ -317,6 +319,25 @@ class Res2NetBlock(nn.Module):
             y = blk(inp)
             outputs.append(y)
         return torch.cat(outputs, dim=1)
+
+
+
+@contextlib.contextmanager
+def folded_constants(model: nn.Module) -> Iterator[None]:
+    """Fold every ``Res2NetBlock``'s weights now, on the real parameters,
+    and inside the block hand the kernel those tensors as they are: no
+    storage or version check. ``torch.export`` traces fake parameters,
+    which have neither, and takes the folded weights in as constants of
+    the exported program (the fold of the weights the model holds now)."""
+    blocks = [m for m in model.modules() if isinstance(m, Res2NetBlock)]
+    for blk in blocks:
+        blk.folded()
+        blk._frozen = True
+    try:
+        yield
+    finally:
+        for blk in blocks:
+            blk._frozen = False
 
 
 class SEBlock(nn.Module):

@@ -46,17 +46,23 @@ class GRUCell(nn.Module):
         self.hz = nn.Linear(features, features, bias=False)
         self.hn = nn.Linear(features, features)
 
+    def _input_layers(self) -> list[nn.Module]:
+        # "in" is a Python keyword, which torch.fx cannot write as an
+        # attribute: export.py traces a copy with it renamed "in_"
+        return [self._modules[k] if k in self._modules
+                else self._modules[k + "_"] for k in ("ir", "iz", "in")]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        names = ("ir", "iz", "in")
+        layers = self._input_layers()
         step_wise = not isinstance(self.ir, nn.Linear)   # int8 layers
         if not step_wise:
             # the input products of every step at once, in x's dtype
-            xs = [promoted(getattr(self, k), x) for k in names]
+            xs = [promoted(layer, x) for layer in layers]
         h = torch.zeros(x.shape[0], self.features, dtype=torch.float32,
                         device=x.device)
         outs = []
         for t in range(x.shape[1]):
-            xr, xz, xn = ([getattr(self, k)(x[:, t]) for k in names]
+            xr, xz, xn = ([layer(x[:, t]) for layer in layers]
                           if step_wise else [v[:, t] for v in xs])
             r = torch.sigmoid(xr + promoted(self.hr, h))
             z = torch.sigmoid(xz + promoted(self.hz, h))

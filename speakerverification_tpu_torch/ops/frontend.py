@@ -270,8 +270,12 @@ def mel_constants(cfg: FrontendConfig, device) -> tuple[torch.Tensor, torch.Tens
     key = (cfg, str(torch.device(device)))
     if key not in _device_constants:
         cs, fb = _constants_np(cfg)
-        _device_constants[key] = (torch.as_tensor(cs, device=device),
-                                  torch.as_tensor(fb, device=device))
+        # ordinary tensors even when first asked for under inference
+        # mode: torch.export takes them in as constants, and refuses
+        # inference tensors
+        with torch.inference_mode(False):
+            _device_constants[key] = (torch.as_tensor(cs, device=device),
+                                      torch.as_tensor(fb, device=device))
     return _device_constants[key]
 
 
@@ -281,8 +285,9 @@ _device_dct: dict = {}
 def _dct(cfg: FrontendConfig, device) -> torch.Tensor:
     key = (cfg, str(torch.device(device)))
     if key not in _device_dct:
-        _device_dct[key] = torch.as_tensor(dct_matrix(cfg.n_mfcc, cfg.n_mels),
-                                           device=device)
+        with torch.inference_mode(False):
+            _device_dct[key] = torch.as_tensor(
+                dct_matrix(cfg.n_mfcc, cfg.n_mels), device=device)
     return _device_dct[key]
 
 

@@ -14,9 +14,15 @@ the window's shape (:func:`symmetric`). The (folded) basis and the mel
 bank are split once here and packed in the order the tensor-core
 instructions read them (:func:`pack_constants`, :func:`chunk_stream`).
 
-:func:`mel_frontend` launches the kernel for a CUDA tensor and runs
-:func:`mel_frontend_plain`, the same function in plain PyTorch, for a
-CPU tensor. ``launches`` counts kernel launches.
+:func:`mel_frontend` calls the registered operator
+``torch.ops.speakerverification_tpu_torch.mel_frontend``, which launches
+the kernel for a CUDA tensor and runs :func:`mel_frontend_plain`, the
+same function in plain PyTorch, for a CPU tensor. The operator has a
+fake implementation (shapes, and the kernel's checks on a CUDA tensor),
+so that ``torch.export`` traces through it, and a FLOP formula for
+``FlopCounterMode`` that counts the plain frontend's work (the full
+``n_fft`` DFT and the mel product), whatever computes it.
+``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import threading
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 from torch.utils.weak import WeakIdKeyDictionary
 
 from speakerverification_tpu_torch.ops.frontend import (
@@ -37,7 +44,7 @@ from speakerverification_tpu_torch.ops.frontend import (
 )
 
 __all__ = ["make_mel_frontend", "mel_frontend", "mel_frontend_plain",
-           "symmetric", "launches"]
+           "mel_frontend_flops", "symmetric", "launches", "MAX_MELS"]
 
 launches = 0
 _launches_lock = threading.Lock()
@@ -51,6 +58,7 @@ _SIGNATURES = {
     "mel_frontend_bins_per_block": ([], ctypes.c_int),
     "mel_frontend_chunk_floats": ([], ctypes.c_int),
 }
+MAX_MELS = 128         # the kernel's mel_frontend_max_mels()
 MMA_DEPTH = 8          # rows of one m16n8k8 step
 SPAN_SKEW = 4          # the kernel's SKEW: empty span slots per hop samples
 
@@ -296,28 +304,22 @@ def _launch(padded: torch.Tensor, cs: torch.Tensor, fb: torch.Tensor,
     global launches
     from speakerverification_tpu_torch.ops._build import load
     lib = load("mel_frontend", _SIGNATURES)
-    B, Tp = padded.shape
-    n_fft, two_k = cs.shape
-    K, n_mels = fb.shape
-    if two_k != 2 * K:
-        raise ValueError(f"basis has {two_k} columns, expected 2*{K}")
-    if n_mels > lib.mel_frontend_max_mels():
-        raise ValueError(f"n_mels {n_mels} > {lib.mel_frontend_max_mels()}")
-    _rows(n_fft, rows)
-    if Tp < n_fft:
-        raise ValueError(f"padded wave of {Tp} samples < n_fft {n_fft}")
+    F_ = _check(padded, cs, fb, hop, rows, kernel=True)
+    if lib.mel_frontend_max_mels() != MAX_MELS:
+        raise ValueError(f"the kernel takes {lib.mel_frontend_max_mels()} "
+                         f"mels, the wrapper checks {MAX_MELS}")
     for name, t in (("wave", padded), ("basis", cs), ("mel bank", fb)):
-        if t.dtype != torch.float32 or not t.is_contiguous() \
-                or t.device != padded.device:
-            raise ValueError(f"{name} must be contiguous float32 on "
-                             f"{padded.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    B, Tp = padded.shape
+    n_fft = cs.shape[0]
+    n_mels = fb.shape[1]
     folded, chunks, fold = _constants(
         cs, fb, rows, lib.mel_frontend_bins_per_block(), hop)
     lo, span, count = fold_rows(n_fft, rows, folded)
     if chunks.shape[-1] != lib.mel_frontend_chunk_floats():
         raise ValueError(f"chunks of {chunks.shape[-1]} floats, the kernel "
                          f"takes {lib.mel_frontend_chunk_floats()}")
-    F_ = 1 + (Tp - n_fft) // hop
     out = torch.empty((B, F_, n_mels), dtype=torch.float32,
                       device=padded.device)
     stream = torch.cuda.current_stream(padded.device).cuda_stream
@@ -343,29 +345,99 @@ def refuse_grad(padded: torch.Tensor) -> None:
                          "this wave requires a gradient")
 
 
+def _check(padded, cs, fb, hop: int, rows, kernel: bool) -> int:
+    """The checks made before any work, on shapes and dtypes alone (so
+    on fake tensors too); ``kernel`` adds those of the CUDA kernel.
+    Returns the frame count."""
+    B, Tp = padded.shape
+    n_fft, two_k = cs.shape
+    K, n_mels = fb.shape
+    if two_k != 2 * K:
+        raise ValueError(f"basis has {two_k} columns, expected 2*{K}")
+    _rows(n_fft, rows)
+    if Tp < n_fft:
+        raise ValueError(f"padded wave of {Tp} samples < n_fft {n_fft}")
+    if kernel:
+        if n_mels > MAX_MELS:
+            raise ValueError(f"n_mels {n_mels} > {MAX_MELS}")
+        if n_fft != 2 * (K - 1):
+            raise ValueError(f"the kernel takes the Nyquist bin apart: "
+                             f"needs K = n_fft/2 + 1, got {K} bins at "
+                             f"n_fft {n_fft}")
+        for name, t in (("wave", padded), ("basis", cs), ("mel bank", fb)):
+            if t.dtype != torch.float32 or t.device != padded.device:
+                raise ValueError(f"{name} must be float32 on "
+                                 f"{padded.device}")
+    return 1 + (Tp - n_fft) // hop
+
+
+@torch.library.custom_op("speakerverification_tpu_torch::mel_frontend",
+                         mutates_args=(), device_types="cpu")
+def _mel_frontend_op(padded: torch.Tensor, cs: torch.Tensor,
+                     fb: torch.Tensor, hop: int, lo: int,
+                     hi: int) -> torch.Tensor:
+    _check(padded, cs, fb, hop, (lo, hi), kernel=False)
+    return mel_frontend_plain(padded, cs, fb, hop, (lo, hi))
+
+
+@_mel_frontend_op.register_kernel("cuda")
+def _(padded, cs, fb, hop, lo, hi):
+    return _launch(padded, cs, fb, hop, (lo, hi))
+
+
+@_mel_frontend_op.register_fake
+def _(padded, cs, fb, hop, lo, hi):
+    frames = _check(padded, cs, fb, hop, (lo, hi),
+                    kernel=padded.device.type == "cuda")
+    dtype = torch.promote_types(torch.promote_types(padded.dtype, cs.dtype),
+                                fb.dtype)
+    return padded.new_empty((padded.shape[0], frames, fb.shape[1]),
+                            dtype=dtype)
+
+
+@register_flop_formula(torch.ops.speakerverification_tpu_torch.mel_frontend)
+def mel_frontend_flops(padded_shape, cs_shape, fb_shape, hop, lo, hi, *,
+                       out_shape=None, **kwargs) -> int:
+    """The plain frontend's products: frames ``[B, F, n_fft]`` @ the
+    basis ``[n_fft, 2K]``, then the power ``[B, F, K]`` @ the mel bank
+    (``2 B F n_fft 2K + 2 B F K n_mels``), whatever the kernel folds or
+    skips."""
+    B, frames, n_mels = out_shape
+    n_fft, two_k = cs_shape
+    return 2 * B * frames * (n_fft * two_k + two_k // 2 * n_mels)
+
+
 def mel_frontend(padded: torch.Tensor, cs: torch.Tensor, fb: torch.Tensor,
                  hop: int, rows: tuple[int, int]) -> torch.Tensor:
     """Frame, DFT, power and mel of a padded wave ``[B, Tp]``.
 
     ``rows = (lo, hi)``: the basis rows that may be nonzero; the others
-    must be zero. CUDA tensors run the hand-written kernel; CPU tensors
-    the plain version. There is no fallback between the two.
+    must be zero. Runs the registered operator on either device: CUDA
+    tensors launch the hand-written kernel, CPU tensors run the plain
+    version. There is no fallback between the two. The operator has no
+    backward: a CPU call that needs a gradient runs the plain version
+    directly, and a CUDA wave that requires one raises
+    (:func:`refuse_grad`).
 
     On a CUDA tensor the kernel needs ``K = n_fft/2 + 1`` bins and at most
-    128 mels, and raises ``ValueError`` on anything else. It folds the
+    128 mels, and raises ``ValueError`` on anything else (under
+    ``torch.export`` too, from the fake implementation). It folds the
     DFT about ``n_fft/2`` where the window is symmetric about it (every
     even ``win_length`` centred in the frame) and takes the unfolded
     route, twice the depth, for any other window (an odd one, such as
     201 at 8 kHz or 441 at 22.05 kHz, is symmetric about
-    ``n_fft/2 - 1/2``). A CUDA wave that requires a gradient raises
-    (:func:`refuse_grad`). The plain version on a CPU tensor takes any
+    ``n_fft/2 - 1/2``). The plain version on a CPU tensor takes any
     basis."""
     if padded.is_cuda:
         refuse_grad(padded)
-        return _launch(padded, cs, fb, hop, rows)
-    if padded.device.type == "cpu":
+    elif padded.device.type != "cpu":
+        raise ValueError(f"mel_frontend: unsupported device {padded.device}")
+    elif torch.is_grad_enabled() and any(
+            t.requires_grad for t in (padded, cs, fb)):
         return mel_frontend_plain(padded, cs, fb, hop, rows)
-    raise ValueError(f"mel_frontend: unsupported device {padded.device}")
+    lo, hi = rows
+    return torch.ops.speakerverification_tpu_torch.mel_frontend(
+        padded, cs, fb, hop, lo, hi)
 
 
 def make_mel_frontend(cfg: FrontendConfig = FrontendConfig()):

@@ -23,9 +23,14 @@ windows into the table the kernel reads; :func:`pack_weights` lays the
 weights out in the order the tensor-core instructions read them, once
 per weights tensor.
 
-:func:`res2net_cascade` launches the kernel for a CUDA tensor and runs
-:func:`res2net_cascade_plain` for a CPU tensor. ``launches`` counts
-kernel launches.
+:func:`res2net_cascade` calls the registered operator
+``torch.ops.speakerverification_tpu_torch.res2net_cascade``, which
+launches the kernel for a CUDA tensor and runs
+:func:`res2net_cascade_plain` for a CPU tensor. Its fake implementation
+makes the kernel's checks on a CUDA tensor, so that ``torch.export``
+refuses at export what the kernel could not take, and its FLOP formula
+counts the plain convolutions' work. ``launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -36,11 +41,13 @@ import threading
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 from torch.utils.weak import WeakIdKeyDictionary
 
 from speakerverification_tpu_torch.ops.mel_frontend import tf32_split
 
-__all__ = ["res2net_cascade", "res2net_cascade_plain", "KERNEL_HIDDEN",
+__all__ = ["res2net_cascade", "res2net_cascade_plain", "res2net_cascade_flops",
+           "KERNEL_HIDDEN",
            "group_windows", "tile_schedule", "pack_weights", "state_version",
            "invalidate_packed",
            "launches"]
@@ -130,6 +137,14 @@ def _widest(T: int, n: int, groups: int, dilation: int) -> int:
                 for o0, o1 in _tiles(T, n)))
 
 
+def _check_halo(T: int, groups: int, dilation: int) -> None:
+    halo = 2 * max(groups - 2, 0) * dilation
+    if T > MAX_COLS and 1 + halo > MAX_COLS:
+        raise ValueError(f"dilation {dilation} too wide for the cascade "
+                         f"kernel's windows of {MAX_COLS} rows at "
+                         f"{groups} groups and a crop of {T} frames")
+
+
 def tile_count(B: int, T: int, groups: int, dilation: int,
                slots: int) -> int:
     """Tiles per batch row: the fewest whose windows fit ``MAX_COLS``,
@@ -137,11 +152,7 @@ def tile_count(B: int, T: int, groups: int, dilation: int,
     blocks (waves of blocks times the column tiles of the busiest
     block). ``chip_smoke.py`` times 2 to 5 tiles at ECAPA_TDNN's
     shape beside this pick."""
-    halo = 2 * max(groups - 2, 0) * dilation
-    if T > MAX_COLS and 1 + halo > MAX_COLS:
-        raise ValueError(f"dilation {dilation} too wide for the cascade "
-                         f"kernel's windows of {MAX_COLS} rows at "
-                         f"{groups} groups and a crop of {T} frames")
+    _check_halo(T, groups, dilation)
     n = -(-T // MAX_COLS)
     while _widest(T, n, groups, dilation) > MAX_COLS:
         n += 1
@@ -245,13 +256,7 @@ def _schedule(B, T, groups, dilation, device):
 
 def _launch(x, weights, conv_bias, bn_scale, bn_shift, dilation):
     global launches
-    B, C, T, groups, hidden = _check(x, weights, dilation)
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"cascade kernel takes float32 or bfloat16, "
-                         f"got {x.dtype}")
-    if hidden not in KERNEL_HIDDEN:
-        raise ValueError(f"cascade kernel is built for hidden widths "
-                         f"{KERNEL_HIDDEN}, got {hidden}")
+    B, C, T, groups, hidden = _check_kernel(x, weights, dilation)
     if not x.is_contiguous():
         raise ValueError("cascade kernel needs a contiguous [B, C, T] input")
     lib = _library()
@@ -275,6 +280,54 @@ def _launch(x, weights, conv_bias, bn_scale, bn_shift, dilation):
     return out
 
 
+def _check_kernel(x, weights, dilation):
+    """The kernel's own checks, on shapes and dtypes alone (so on fake
+    tensors too); returns ``_check``'s ``(B, C, T, groups, hidden)``."""
+    shape = _check(x, weights, dilation)
+    T, groups, hidden = shape[2:]
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"cascade kernel takes float32 or bfloat16, "
+                         f"got {x.dtype}")
+    if hidden not in KERNEL_HIDDEN:
+        raise ValueError(f"cascade kernel is built for hidden widths "
+                         f"{KERNEL_HIDDEN}, got {hidden}")
+    _check_halo(T, groups, dilation)
+    return shape
+
+
+@torch.library.custom_op("speakerverification_tpu_torch::res2net_cascade",
+                         mutates_args=(), device_types="cpu")
+def _res2net_cascade_op(x: torch.Tensor, weights: torch.Tensor,
+                        conv_bias: torch.Tensor, bn_scale: torch.Tensor,
+                        bn_shift: torch.Tensor,
+                        dilation: int) -> torch.Tensor:
+    return res2net_cascade_plain(x, weights, conv_bias, bn_scale, bn_shift,
+                                 dilation)
+
+
+@_res2net_cascade_op.register_kernel("cuda")
+def _(x, weights, conv_bias, bn_scale, bn_shift, dilation):
+    return _launch(x, weights, conv_bias, bn_scale, bn_shift, dilation)
+
+
+@_res2net_cascade_op.register_fake
+def _(x, weights, conv_bias, bn_scale, bn_shift, dilation):
+    if x.device.type == "cuda":
+        _check_kernel(x, weights, dilation)
+    else:
+        _check(x, weights, dilation)
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+@register_flop_formula(torch.ops.speakerverification_tpu_torch.res2net_cascade)
+def res2net_cascade_flops(x_shape, w_shape, *args, out_shape=None,
+                          **kwargs) -> int:
+    """The plain cascade's convolutions: ``2 B T H^2 3 (s-1)``."""
+    B, _, T = x_shape
+    g1, k, hidden, _ = w_shape
+    return 2 * B * T * hidden * hidden * k * g1
+
+
 def res2net_cascade(x: torch.Tensor, weights: torch.Tensor,
                     conv_bias: torch.Tensor, bn_scale: torch.Tensor,
                     bn_shift: torch.Tensor, *, dilation: int) -> torch.Tensor:
@@ -286,17 +339,22 @@ def res2net_cascade(x: torch.Tensor, weights: torch.Tensor,
         to ``y = h * bn_scale + bn_shift``.
       dilation: conv dilation (kernel size is 3).
 
-    CUDA tensors run the hand-written kernel; CPU tensors the plain
-    version. There is no fallback between the two. On a CUDA tensor a
-    group's window must fit the kernel's 128 rows: past 128 frames that
-    takes ``1 + 2 (s-2) dilation <= 128`` (dilation 10 at s = 8), and the
-    kernel raises ``ValueError`` on a wider halo. The packed weights are
-    kept per ``weights`` tensor until its storage or version changes or
-    it dies; after an edit that keeps both, call
+    Runs the registered operator on either device: CUDA tensors launch
+    the hand-written kernel, CPU tensors run the plain version. There is
+    no fallback between the two. The operator has no backward: a CPU
+    call that needs a gradient runs the plain version directly. On a
+    CUDA tensor a group's window must fit the kernel's 128 rows: past
+    128 frames that takes ``1 + 2 (s-2) dilation <= 128`` (dilation 10
+    at s = 8), and the kernel raises ``ValueError`` on a wider halo
+    (under ``torch.export`` too, from the fake implementation). The
+    packed weights are kept per ``weights`` tensor until its storage or
+    version changes or it dies; after an edit that keeps both, call
     :func:`invalidate_packed`."""
-    if x.is_cuda:
-        return _launch(x, weights, conv_bias, bn_scale, bn_shift, dilation)
-    if x.device.type == "cpu":
-        return res2net_cascade_plain(x, weights, conv_bias, bn_scale,
-                                     bn_shift, dilation)
-    raise ValueError(f"res2net_cascade: unsupported device {x.device}")
+    args = (x, weights, conv_bias, bn_scale, bn_shift)
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"res2net_cascade: unsupported device {x.device}")
+    if not x.is_cuda and torch.is_grad_enabled() and any(
+            t.requires_grad for t in args):
+        return res2net_cascade_plain(*args, dilation)
+    return torch.ops.speakerverification_tpu_torch.res2net_cascade(
+        *args, dilation)

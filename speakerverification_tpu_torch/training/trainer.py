@@ -22,15 +22,19 @@ and dropout's) is seeded from ``seed * 1000 + epoch`` at each epoch's
 start; its state is not checkpointed (the JAX trainer keeps no rng
 state either).
 
-The model runs on CUDA unless the caller asks for the CPU. Not ported,
-and refused by name: ``distributed``/``data_parallel``,
-``model_parallel > 1``, ``profile`` and ``sharded_checkpoints``. The
-loader reads packed shards when ``dataloader_options.shards`` names a
-pack (``cli.dataprep --pack``).
+The model runs on CUDA unless the caller asks for the CPU. ``profile:
+true`` with a ``profile_dir`` runs the first epoch under
+``torch.profiler`` (the host, and the card when training on one) and
+writes it as chrome-trace JSON to ``profile_dir/trace.json``, where the
+JAX trainer writes a TensorBoard trace. Not ported, and refused by name:
+``distributed``/``data_parallel``, ``model_parallel > 1`` and
+``sharded_checkpoints``. The loader reads packed shards when
+``dataloader_options.shards`` names a pack (``cli.dataprep --pack``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import signal
 import time
 from pathlib import Path
@@ -79,8 +83,6 @@ __all__ = ["Trainer", "device_augmentation", "run_dirs"]
 _REFUSED = {
     "distributed": "multi-GPU training is not ported yet: train on one GPU",
     "data_parallel": "multi-GPU training is not ported yet: train on one GPU",
-    "profile": "the training profiler trace (profile/profile_dir) is not "
-               "ported",
     "sharded_checkpoints": "orbax sharded checkpoints are not ported: the "
                            "port writes msgpack checkpoints",
 }
@@ -201,6 +203,11 @@ class Trainer:
         except ImportError:
             pass
 
+        # profile: the first epoch's torch.profiler trace, written as
+        # chrome-trace JSON to profile_dir/trace.json
+        self._profile_dir = (Path(str(self.hparams["profile_dir"]))
+                             if self.hparams.get("profile")
+                             and self.hparams.get("profile_dir") else None)
         self.state = None
         self._preempt = False
         self.init_epoch = 1
@@ -256,25 +263,42 @@ class Trainer:
         losses, accs = [], []
         t0 = time.time()
         n_utts = 0
-        for it, batch in enumerate(self.loader):
-            if self._preempt:
-                break
-            lr = self._lr(epoch, it, (epoch - 1) * self.steps_per_epoch + it)
-            wave = torch.from_numpy(batch["wave"]).to(self.device)
-            label = torch.from_numpy(batch["label"]).to(self.device)
-            self.state, metrics = self.step_fn(self.state, wave, label, lr,
-                                               self.rng, *aug)
-            losses.append(metrics["loss"])
-            accs.append(metrics["prec1"])
-            n_utts += batch["wave"].shape[0] * batch["wave"].shape[1]
-        # one device sync per epoch
-        loss = float(torch.stack(losses).mean()) if losses else float("nan")
-        acc = float(torch.stack(accs).mean()) if accs else float("nan")
+        profiling = self._profile_dir is not None and epoch == self.init_epoch
+        with self._profiler() if profiling else contextlib.nullcontext() \
+                as prof:
+            for it, batch in enumerate(self.loader):
+                if self._preempt:
+                    break
+                lr = self._lr(epoch, it,
+                              (epoch - 1) * self.steps_per_epoch + it)
+                wave = torch.from_numpy(batch["wave"]).to(self.device)
+                label = torch.from_numpy(batch["label"]).to(self.device)
+                self.state, metrics = self.step_fn(self.state, wave, label,
+                                                   lr, self.rng, *aug)
+                losses.append(metrics["loss"])
+                accs.append(metrics["prec1"])
+                n_utts += batch["wave"].shape[0] * batch["wave"].shape[1]
+            # one device sync per epoch
+            loss = (float(torch.stack(losses).mean()) if losses
+                    else float("nan"))
+            acc = float(torch.stack(accs).mean()) if accs else float("nan")
         dt = time.time() - t0
+        if profiling:
+            self._profile_dir.mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(str(self._profile_dir / "trace.json"))
+            print(f"[INFO] profiler trace written to {self._profile_dir}")
         print(f"[E{epoch:03d}] loss {loss:.4f} acc {acc:5.2f}% "
               f"lr {self._lr(epoch, 0, (epoch - 1) * self.steps_per_epoch):.2e} "
               f"({n_utts / max(dt, 1e-9):.1f} utt/s, {dt:.3f} s)")
         return loss, acc
+
+    def _profiler(self):
+        """``torch.profiler`` over the host, and the card when training
+        on one."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        return torch.profiler.profile(activities=acts)
 
     def _validation_trials(self) -> Path:
         """A trial list from the dev manifest: each dev utterance in one

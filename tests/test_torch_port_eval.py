@@ -210,11 +210,14 @@ def test_cli_eval_writes_one_row_per_trial(ws, tmp_path, capsys):
     wavs = sorted(str(p) for p in (root / "data").glob("spk*/u0.wav"))
     assert cli_main(["--do_infer", "--predict", *wavs, *args, *w]) == 0
     assert capsys.readouterr().out.count("[RESULT] predict: spk") == N_SPK
-    # --do_train runs now; its multi-device flags and --do_export are not
-    # ported and exit 2 by name
-    for verb in (["--do_train", "--distributed"], ["--do_export"]):
-        assert cli_main([*verb, *args]) == 2
-        assert "not ported" in capsys.readouterr().err
+    # --do_train runs now; its multi-device flags are not ported and exit
+    # 2 by name; --do_export writes the program, weights and config
+    assert cli_main(["--do_train", "--distributed", *args]) == 2
+    assert "not ported" in capsys.readouterr().err
+    assert cli_main(["--do_export", *args, *w]) == 0
+    assert "[INFO] exported to" in capsys.readouterr().out
+    assert {p.name for p in (run / "model" / "export").iterdir()} == {
+        "params.msgpack", "config.json", "model.pt2"}
     # --do_infer alone has no verb to run, --predict no files: no silent
     # success
     assert cli_main(["--do_infer", *args]) == 2

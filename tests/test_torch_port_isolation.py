@@ -54,12 +54,17 @@ def test_port_imports_no_jax_and_no_jax_package():
                      "models.resnetse", "models.senet", "models.titanet",
                      "models.hybrids2", "losses.adaptive",
                      "losses.proxy", "losses.similarity", "losses.triplet",
-                     "optim.second_order"):
+                     "optim.second_order", "ops.signal",
+                     "ops.features_extra", "ops.filteraugment", "export",
+                     "utils.sysinfo", "utils.summary", "utils.plotting",
+                     "evaluation.benchmark"):
         assert f"speakerverification_tpu_torch.{expected}" in res["modules"]
     loaded = res["loaded"]
-    # the GPU host has neither msgpack, ml_dtypes nor PyYAML: the codec is
-    # the port's own, and the CLI reads YAML lazily
-    for banned in ("jax", "flax", "optax", "msgpack", "ml_dtypes", "yaml"):
+    # the GPU host has neither msgpack, ml_dtypes, PyYAML nor matplotlib:
+    # the codec is the port's own, the CLI reads YAML lazily and the
+    # plots import matplotlib when they draw
+    for banned in ("jax", "flax", "optax", "msgpack", "ml_dtypes", "yaml",
+                   "matplotlib"):
         assert not [m for m in loaded
                     if m == banned or m.startswith(banned + ".")], banned
     assert not [m for m in loaded if m == "speakerverification_tpu"

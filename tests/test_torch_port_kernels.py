@@ -171,6 +171,41 @@ def test_mel_kernel_raises_on_a_cuda_wave_that_needs_a_gradient(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name,n,samples", [("8k", 5, 8000),
+                                            ("16k", 3, 16000)])
+def test_mel_op_passes_opcheck_and_equals_the_launch(cuda, name, n, samples):
+    """The registered operator on CUDA tensors: ``opcheck`` (schema, fake
+    implementation, autograd registration, AOT dispatch), and its output
+    bit for bit a direct launch of the kernel's wrapper."""
+    cfg, padded, cs, fb = _mel_inputs(name, n, samples, 80, cuda)
+    lo, hi = window_rows(cfg)
+    op = torch.ops.speakerverification_tpu_torch.mel_frontend
+    result = torch.library.opcheck(op.default,
+                                   (padded, cs, fb, cfg.hop_length, lo, hi))
+    assert set(result.values()) == {"SUCCESS"}, result
+    before = mf.launches
+    got = op(padded, cs, fb, cfg.hop_length, lo, hi)
+    assert mf.launches == before + 1
+    assert torch.equal(got, mf._launch(padded, cs, fb, cfg.hop_length,
+                                       (lo, hi)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden,T", [(64, 201), (128, 300)])
+def test_cascade_op_passes_opcheck_and_equals_the_launch(cuda, hidden, T,
+                                                         dtype):
+    x, w, cb, s, sh = _cascade_inputs(hidden, T, dtype, cuda)
+    op = torch.ops.speakerverification_tpu_torch.res2net_cascade
+    result = torch.library.opcheck(op.default, (x, w, cb, s, sh, 2))
+    assert set(result.values()) == {"SUCCESS"}, result
+    before = rc.launches
+    got = op(x, w, cb, s, sh, 2)
+    assert rc.launches == before + 1
+    assert torch.equal(got, rc._launch(x, w, cb, s, sh, 2))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dilation", [2, 3, 4])
 @pytest.mark.parametrize("hidden", [64, 128])

@@ -242,6 +242,16 @@ def test_sigterm_checkpoints_the_unfinished_epoch(tmp_path):
     ("distributed", True), ("data_parallel", True), ("model_parallel", 2),
     ("profile", True), ("sharded_checkpoints", True)])
 def test_trainer_refuses_what_is_not_ported(tmp_path, key, value):
+    if key == "profile":
+        # ported since the thirteenth slice: the key is taken, and names
+        # the first epoch's trace (tests/test_torch_port_tools.py runs it)
+        _corpus(tmp_path)
+        generate_metadata(tmp_path / "data", tmp_path / "meta", seed=3)
+        trainer = Trainer(_hparams(tmp_path, profile=value,
+                                   profile_dir=str(tmp_path / "prof")),
+                          device="cpu")
+        assert trainer._profile_dir == tmp_path / "prof"
+        return
     with pytest.raises(NotImplementedError, match=key):
         Trainer(_hparams(tmp_path, **{key: value}), device="cpu")
 
