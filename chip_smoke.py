@@ -16,6 +16,8 @@
                                        # model zoo)
     python3 chip_smoke.py --export-tools  # only path N (export, the
                                           # feature-domain ops, the tools)
+    python3 chip_smoke.py --multi-gpu  # only path O (the multi-GPU code
+                                       # on one card)
 
 Phases, each of which fails the run:
   1. build the hand-written kernels from ``speakerverification_tpu_torch/csrc``
@@ -110,13 +112,14 @@ Phases, each of which fails the run:
      width (Raw3_ECAPA, 8 kHz, 32 x 2 crops of 2 s, 13,103 classes): L1
      the 17 new heads on the embeddings of one training forward, card
      against CPU (loss, prec1, gradients), the embedding norms logged;
-     L2 each head in the train step, 10 steps on one batch, the loss
+     L2 each head in the train step, 10 steps on one batch (6 in the
+     whole script), the loss
      falling (a head that diverges or overflows as in JAX held to the
      CPU's first step instead), the step timed, K1 counted; L3 the 24 new
      optimizers and Lookahead over AdaBelief: three updates with
      full-width gradient trees on the card against the CPU (Shampoo one,
      its CPU side over the leaves with axes <= 4,096), then five train
-     steps, ``tx.update``
+     steps (three in the whole script), ``tx.update``
      timed as its share of the step; L4 Adahessian's true second-order
      step (double backward) against its plain one, time and peak
      memory; L5 ``--do_train`` with MSAmSoftmax and Lamb, its optimizer
@@ -152,11 +155,36 @@ Phases, each of which fails the run:
      timed, and the random ops drawing from the card's generator; N5
      ``--list_components``, ``--sys_info`` and a 2-step first epoch of the
      default stack with ``profile: true``, its ``trace.json`` holding the
-     K1 kernel.
+     K1 kernel;
+ 17. path O: the multi-GPU code on one card (NCCL refuses two ranks on
+     one GPU: the NCCL path runs at world size 1, the multi-rank math as
+     two processes on cuda:0 over gloo): O1 the default stack's
+     data-parallel step over NCCL at world size 1 against the plain step,
+     three steps each, bit for bit or within 1e-6, ms per step, K1 in a
+     profiled step; O2 two ranks of 16 x 2 crops against one process's
+     ``accumulate_steps: 2`` step on the 32 x 2 batch (loss 1e-4, each
+     gradient's cosine >= 0.9999, the BN statistics meaned); O3 data 1 x
+     model 2 with AAmSoftmax over 5,994 classes against the unsharded
+     step (loss and prec1 1e-5, cosines >= 0.9999), each rank's bytes of
+     the head; O4 a ``ShardedSpeakerBank`` of two shards on the card at
+     1,000,000 x 512 against ``SpeakerBank`` (top-5 indices equal,
+     scores 1e-6), ms per identify, and ``make_eval_embed_fn`` split over
+     the card named twice with K1 and K2 against one device (cosine >=
+     0.9999999); O5 O3's state through ``save_sharded``,
+     ``async_save_sharded`` + ``wait`` and its msgpack, read into one
+     process bit for bit, seconds and bytes; O6 ``--do_train
+     --distributed --distributed_backend gloo --model_parallel 2`` run
+     by O2's two ranks through the CLI's ``main``, one epoch of 2 steps
+     with sharded checkpoints, then ``--do_infer --eval`` split over them
+     against one process's (scores 1e-5).
 Every path is compared with the same model's plain path on the CPU.
-The whole script times its train steps without profiling them and each
-loader over its first 8 batches (``PROFILE_STEPS``, ``LOADER_BATCHES``);
-a path run alone profiles its steps and reads whole epochs.
+The whole script times its train steps without profiling them and at
+most 3 of them after one warm-up, reads each loader over its first 8
+batches, runs L2 and L3 over fewer steps and L3 over 2 updates, and
+times path C's eval on half of VoxCeleb1-O's list (``PROFILE_STEPS``,
+``TIMED_STEPS_CAP``, ``LOADER_BATCHES``, ``L2_STEPS``, ``L3_STEPS``,
+``L3_UPDATES``, ``C_LIST_SHARE``); a path run alone profiles its steps,
+reads whole epochs and takes the full depth.
 
 The script imports nothing of the JAX package. hparams are built in code
 (they mirror ``yaml/raw3_ecapa.yaml``, ``yaml/ecapa_tdnn.yaml``,
@@ -1728,31 +1756,40 @@ def path_d(tmp, card: str) -> dict:
             "waves": waves}
 
 
+# C's list as a share of VoxCeleb1-O's size (the whole script: half)
+C_LIST_SHARE = 1.0
+
+
 def eval_at_list_size(engine, h, root) -> None:
     """Time the eval verb of an int8 engine that is already calibrated
     and built on a trial list of VoxCeleb1-O's size (40 speakers, 4,874
-    files, 37,720 trials; here 40 x 122 = 4,880 synthetic 3 s files):
-    the wall of ``engine.evaluate`` (decode, extraction, scoring, the
-    CSV), per batch and per file, set-up and calibration left out."""
+    files, 37,720 trials; here 40 x 122 = 4,880 synthetic 3 s files, or
+    ``C_LIST_SHARE`` of them and of the trials): the wall of
+    ``engine.evaluate`` (decode, extraction, scoring, the CSV), per batch
+    and per file, set-up and calibration left out; the lists per
+    GPU-hour are of VoxCeleb1-O's size, at the measured files/s."""
     import numpy as np
+    n_utt, n_trials = (round(122 * C_LIST_SHARE),
+                       round(37720 * C_LIST_SHARE))
     t0 = time.time()
     files, trials = write_trial_data(root, h["audio_spec"]["sample_rate"],
-                                     n_spk=40, n_utt=122, n_trials=37720,
-                                     f0_step=15.0)
+                                     n_spk=40, n_utt=n_utt,
+                                     n_trials=n_trials, f0_step=15.0)
     t_write = time.time() - t0
     report = engine.evaluate(trials)
     with open(trials) as f:
         n_files = len({p for ln in f for p in ln.split()[1:]})
     batches = -(-n_files // BATCH_UTTS)
     sec = report["seconds"]
-    if report["n_trials"] != 37720 or not np.isfinite(report["eer"]):
+    if report["n_trials"] != n_trials or not np.isfinite(report["eer"]):
         fail(f"path C at list size: incomplete or not finite: {report}")
     log(f"[C list size] {report['n_trials']} trials over {n_files} files "
         f"({batches} batches of {BATCH_UTTS}x{h['num_eval']} crops), int8, "
         f"engine calibrated and built: {sec:.3f} s wall "
         f"({1e3 * sec / batches:.2f} ms per batch, {n_files / sec:.1f} "
-        f"files/s, {3600 / sec:.1f} such lists per GPU-hour); "
-        f"WAVs written in {t_write:.1f} s beforehand")
+        f"files/s, {3600 / (sec * 4880 / n_files):.1f} lists of "
+        f"VoxCeleb1-O's size per GPU-hour); WAVs written in {t_write:.1f} s "
+        f"beforehand")
 
 
 def throughput(label: str, engine, waves, num_eval: int, card: str) -> None:
@@ -1778,6 +1815,9 @@ PROFILE_CALLS = 1
 # (``--zoo``, ``--data-path``, ...) keeps both
 PROFILE_STEPS = True
 LOADER_BATCHES = None
+# the whole script times at most this many train steps after one warm-up
+# (``time_steps``); a path run alone takes each caller's counts
+TIMED_STEPS_CAP = None
 
 
 def profile(label: str, engine, waves, fn=None, top: int = 12,
@@ -2094,6 +2134,8 @@ def time_steps(label: str, h, card: str, steps: int = 6,
     follow the learning rate (a generator and banks); ``batch`` is a
     loader's ``(wave, label)`` to step on instead of a seeded one."""
     import torch
+    if TIMED_STEPS_CAP is not None:
+        steps, warmup = min(steps, TIMED_STEPS_CAP), min(warmup, 1)
     state, step = built or train_state(h, E_DEVICE)
     n_spk = int(h["dataloader_options"]["batch_size"])
     n_crops = 2 * n_spk
@@ -4036,6 +4078,12 @@ L_SHAMPOO_CPU_AXIS = 4096
 # 97 s on a slow host and of those up to 1,024, with the float64 referee,
 # 22.8 s; ``--train-zoo`` keeps both
 L_SHAMPOO_WHOLE_RUN = {"shampoo_classes": 2048, "shampoo_cpu_axis": 512}
+# L2's steps per head and L3's train steps per optimizer; the whole script
+# takes 6 and 3 (path L alone 10 and 5): every head that falls in PR
+# 16's runs fell within its first 6 steps
+L2_STEPS, L3_STEPS = 10, 5
+# L3's updates held card against CPU per optimizer (the whole script: 2)
+L3_UPDATES = 3
 # a divergent head's loss on the card against the CPU's (path L2): at
 # step 0, on the same weights, within this relative difference; after the
 # first step, within this factor either way (see path_l2)
@@ -4252,11 +4300,11 @@ def l_cpu_first_two(h: dict, model, start: dict, wave, label) -> list:
 
 
 def path_l2(h: dict, model, trunk, wave, label, card: str) -> dict:
-    """Each head on the default stack's train step (AdaBelief), 10 steps
-    on one fixed batch: the loss stays finite and falls (the mean of the
-    last three below the loss at step 0, of the initial weights); the
-    step timed
-    (CUDA events, steps 2-10), K1 counted (once per step). A loss that
+    """Each head on the default stack's train step (AdaBelief),
+    ``L2_STEPS`` steps on one fixed batch: the loss stays finite and
+    falls (the mean of the last three below the loss at step 0, of the
+    initial weights); the step timed (CUDA events, from step 2), K1
+    counted (once per step). A loss that
     turns non-finite is held to the CPU: on the forward of the step that
     broke (that one, or the one before where its gradient was not
     finite), the head's loss or gradient must not be finite on the CPU
@@ -4286,7 +4334,7 @@ def path_l2(h: dict, model, trunk, wave, label, card: str) -> dict:
                               optimizer_from_hparams(h))
         losses, ms, overflow, snaps = [], [], None, []
         reset_counts()
-        for i in range(10):
+        for i in range(L2_STEPS):
             snaps = snaps[-1:] + [{k: v.detach().clone()
                                    for k, v in model.state_dict().items()}]
             if i == 0:
@@ -4431,7 +4479,7 @@ def path_l3(h: dict, model, trunk, card: str, shampoo_classes=None,
     than twice as far as the CPU's from a float64 run of that leaf (on the
     card): where a preconditioner is rank-deficient (a 1-D leaf, a Dense
     weight's gradient of rank <= 64) its inverse root scales fp32
-    rounding by up to eps^(-1/order). Then five train steps on the card
+    rounding by up to eps^(-1/order). Then ``L3_STEPS`` train steps on the card
     (none for Shampoo: one update takes ~38 s, almost all one SVD of the
     13,103² class-axis preconditioner), the loss and the parameters
     finite, the step and ``tx.update`` timed (CUDA events). With
@@ -4488,7 +4536,7 @@ def path_l3(h: dict, model, trunk, card: str, shampoo_classes=None,
                                [{k: g[k].double() for k in miss}
                                 for g in s_grads], n)
         else:
-            n = 3
+            n = L3_UPDATES
             p_card, upd_ms = l_updates(tx, params, grads, n, timed=True)
             t1 = time.time()
             p_cpu, _ = l_updates(tx, params_cpu, grads_cpu, n)
@@ -4509,10 +4557,11 @@ def path_l3(h: dict, model, trunk, card: str, shampoo_classes=None,
                 zero_worst = max(zero_worst, err)
             elif err > worst:
                 worst, worst_at = err, k
-        # five train steps on the card (Shampoo runs its one update only)
+        # L3_STEPS train steps on the card (Shampoo runs its one update
+        # only)
         state, step = l_reset(model, trunk, l_head("ARmSoftmax", h), tx)
         reset_counts()
-        steps = 0 if name == "Shampoo" else 5
+        steps = 0 if name == "Shampoo" else L3_STEPS
         ms, losses = [], []
         for i in range(steps):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -5653,6 +5702,735 @@ def export_tools() -> None:
 
 
 # ----------------------------------------------------------------------
+# path O: the multi-GPU code on one card (--multi-gpu)
+# ----------------------------------------------------------------------
+# path O runs on the card; tests/test_torch_port_parallel_smoke.py sets
+# "cpu" and small sizes. NCCL refuses two ranks on one GPU, so the NCCL
+# path runs at world size 1 (O1) and the multi-rank math as two ranks on
+# cuda:0 over gloo, which stages CUDA tensors through the host.
+O_DEVICE = "cuda"
+# the default stack (O1, O2; O3 and O6 with AAmSoftmax) and the served
+# model of O4's eval data parallelism (its ECAPA branch through K2)
+O_H = RAW3_TRAIN_HPARAMS
+O_EMBED_H = {**RAW3_ECAPA_HPARAMS, "model": {
+    **RAW3_ECAPA_HPARAMS["model"], "conv_backend": "pallas"}}
+# O3 steps on 16 x 2 crops, O2's shard: the ranks then reuse the
+# convolution plans O2's first step timed
+O_SIZES = {"speakers": 32, "tp_speakers": 16, "tp_classes": 5994,
+           "bank_rows": 1_000_000, "bank_dim": 512, "bank_queries": 64,
+           "embed_crops": 40, "cli_speakers": 48, "o1_steps": 3}
+O_BARS = {"o1_rel": 1e-6, "o2_loss": 1e-4, "grad_cos": 0.9999,
+          "o3_metrics": 1e-5, "bank_scores": 1e-6, "embed_cos": 0.9999999,
+          "cli_scores": 1e-5}
+AAM = {"name": "AAmSoftmax", "margin": 0.2, "scale": 30}
+
+
+def o_device():
+    import torch
+    return torch.device(O_DEVICE, 0) if O_DEVICE == "cuda" \
+        else torch.device(O_DEVICE)
+
+
+def o_sync() -> None:
+    import torch
+    if O_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+_O_INITIAL: dict = {}      # (hparams, seed, ranks) -> the initial state
+
+
+def o_state(h, seed: int = 7, num_devices: int = 1, record=None):
+    """``(model, tx, state)`` of ``h``'s stack on path O's device, the
+    weights drawn from ``seed`` (built once, then copied: flax's
+    initializers on the host take seconds at full width); with
+    ``record`` (a dict), the optimizer keeps each update's incoming
+    gradients in ``record["grads"]``."""
+    import copy
+    from speakerverification_tpu_torch.builder import (
+        encoder_from_hparams,
+        optimizer_from_hparams,
+    )
+    from speakerverification_tpu_torch.optim import GradientTransformation
+    from speakerverification_tpu_torch.training.state import (
+        create_train_state,
+    )
+    key = (json.dumps(h, sort_keys=True), seed, num_devices)
+    if key not in _O_INITIAL:
+        model = encoder_from_hparams(h, with_loss=True,
+                                     num_devices=num_devices).to(o_device())
+        _O_INITIAL[key] = create_train_state(model, optimizer_from_hparams(h),
+                                             seed)
+    state = copy.deepcopy(_O_INITIAL[key])
+    model = state.model
+    tx = optimizer_from_hparams(h)
+    if record is not None:
+        inner = tx
+
+        def update(grads, opt_state, params):
+            record["grads"] = {k: g.detach().clone()
+                               for k, g in grads.items()}
+            return inner.update(grads, opt_state, params)
+        tx = GradientTransformation(inner.init, update)
+    return model, tx, state
+
+
+def o_batch(h, seed: int, speakers=None):
+    import torch
+    wave, label = seeded_batch(seed, speakers or O_SIZES["speakers"], 2, h)
+    return (torch.from_numpy(wave).to(o_device()),
+            torch.from_numpy(label).to(o_device()))
+
+
+def leaf_cosines(got: dict, want: dict, skip=ZERO_GRAD) -> tuple:
+    """The lowest per-leaf cosine of two gradient trees and its leaf
+    (leaves ``skip`` names, whose gradient is zero by construction, left
+    out)."""
+    worst, name = 2.0, ""
+    for k, w in want.items():
+        if k.endswith(skip):
+            continue
+        a, b = got[k].double().ravel().cpu(), w.double().ravel().cpu()
+        c = float(a @ b / max(float(a.norm() * b.norm()), 1e-300))
+        if c < worst:
+            worst, name = c, k
+    return worst, name
+
+
+def trees_equal(a, b, path: str = "") -> str:
+    """'' when two msgpack trees are equal leaf for leaf, else where not."""
+    import numpy as np
+    if isinstance(a, dict) or isinstance(b, dict):
+        if not (isinstance(a, dict) and isinstance(b, dict)) \
+                or set(a) != set(b):
+            return path or "<root>"
+        for k in a:
+            where = trees_equal(a[k], b[k], f"{path}/{k}")
+            if where:
+                return where
+        return ""
+    x, y = np.asarray(a), np.asarray(b)
+    return "" if x.dtype == y.dtype and np.array_equal(x, y) else path
+
+
+def path_o1(tmp, card: str) -> dict:
+    """O1: the data-parallel step over NCCL at world size 1 against the
+    plain step, ``o1_steps`` steps each from the same state with
+    deterministic convolution plans; ms per step; K1 counted in one
+    profiled DP step."""
+    import torch
+    import torch.distributed as dist
+    from speakerverification_tpu_torch.parallel import (
+        make_dp_train_step,
+        make_mesh,
+        maybe_initialize_distributed,
+    )
+    from speakerverification_tpu_torch.training.train_step import (
+        make_train_step,
+    )
+    h = O_H
+    maybe_initialize_distributed({
+        "coordinator_address": f"file://{tmp / 'o1_store'}",
+        "num_processes": 1, "process_id": 0,
+        "distributed_backend": "nccl" if O_DEVICE == "cuda" else "gloo",
+        "device": O_DEVICE})
+    cudnn = torch.backends.cudnn
+    was = cudnn.deterministic
+    try:
+        mesh = make_mesh()
+        model_p, tx_p, plain = o_state(h)
+        model_d, tx_d, dp = o_state(h)
+        steps = {"plain": (make_train_step(model_p, tx_p), plain),
+                 "DP": (make_dp_train_step(model_d, tx_d, mesh), dp)}
+        cudnn.deterministic = True
+        times = {k: [] for k in steps}
+        for i in range(O_SIZES["o1_steps"]):
+            wave, label = o_batch(h, 60 + i)
+            for name, (step, state) in steps.items():
+                o_sync()
+                t0 = time.time()
+                step(state, wave, label, h["lr"])
+                o_sync()
+                times[name].append((time.time() - t0) * 1e3)
+        worst, at, equal = 0.0, "", True
+        for k, p in plain.params.items():
+            p, q = p.detach(), dp.params[k].detach()
+            equal = equal and torch.equal(p, q)
+            rel = float((p - q).abs().max() / p.abs().max().clamp_min(1e-30))
+            if rel > worst:
+                worst, at = rel, k
+        stats_equal = all(torch.equal(v, dp.batch_stats[k])
+                          for k, v in plain.batch_stats.items())
+        ok = worst <= O_BARS["o1_rel"]
+        ms = {k: sum(v[1:]) / max(len(v) - 1, 1) for k, v in times.items()}
+        log(f"[O1] the DP step over {dist.get_backend()} at world size "
+            f"{dist.get_world_size()} vs the plain step, "
+            f"{O_SIZES['o1_steps']} steps of {2 * O_SIZES['speakers']} crops "
+            f"each from one state: parameters bit for bit {equal}, BN "
+            f"statistics bit for bit {stats_equal}, largest relative "
+            f"difference {worst:.3e}{' at ' + at if at else ''} (bar "
+            f"{O_BARS['o1_rel']:g}) {'ok' if ok else 'FAIL'}")
+        log(f"[O1] ms per step (host wall, synchronized, the steps after "
+            f"the first): plain {ms['plain']:.2f}, DP {ms['DP']:.2f} "
+            f"({card})")
+        if not ok:
+            fail("path O1: the world-size-1 DP step disagrees with the "
+                 "plain step")
+        cudnn.deterministic = was
+        # one profiled DP step: K1 among its kernels
+        wave, label = o_batch(h, 70)
+        before = read_counts()["mel_frontend"]
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if O_DEVICE == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=acts) as prof:
+            steps["DP"][0](dp, wave, label, h["lr"])
+            o_sync()
+        launched = read_counts()["mel_frontend"] - before
+        k1 = [e for e in prof.key_averages() if "mel_kernel" in e.key]
+        k1_ms = sum(getattr(e, "self_device_time_total", 0.0)
+                    for e in k1) / 1e3
+        log(f"[O1] a profiled DP step: K1 launched {launched} time(s), "
+            f"{sum(e.count for e in k1)} mel_kernel event(s) in its trace, "
+            f"{k1_ms:.3f} ms of device time")
+        # the launch count decides: in a long process the profiler may
+        # miss the ctypes libraries' kernels (PERF.md §7)
+        if launched < 1:
+            fail("path O1: K1 did not run in the profiled DP step")
+        return {"ms": ms, "bit_equal": equal, "rel": worst}
+    finally:
+        cudnn.deterministic = was
+        dist.destroy_process_group()
+
+
+def o_rank_main(world: int, workdir) -> None:
+    """One rank of O2, O3 and O5 (``chip_smoke.py --o-rank``, its rank in
+    ``SVTPU_PROCESS_ID``): joins a gloo group through a file store in
+    ``workdir`` and writes its results to ``workdir/out_<rank>.pt``."""
+    import os
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+    workdir = Path(workdir)
+    rank = int(os.environ["SVTPU_PROCESS_ID"])
+    cfg = json.loads((workdir / "o_inputs.json").read_text())
+    global O_DEVICE, O_H, O_SIZES
+    O_DEVICE, O_H, O_SIZES = cfg["device"], cfg["h"], cfg["sizes"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from speakerverification_tpu_torch import checkpoint as codec
+    from speakerverification_tpu_torch.parallel import (
+        make_dp_tp_train_step,
+        make_dp_train_step,
+        make_mesh,
+        maybe_initialize_distributed,
+        shard_batch,
+        shard_state_tp,
+    )
+    from speakerverification_tpu_torch.parallel.tp import state_leaves
+    from speakerverification_tpu_torch.training import (
+        checkpoint_sharded as cs,
+    )
+    from speakerverification_tpu_torch.training.checkpoint import (
+        state_to_jax,
+    )
+    maybe_initialize_distributed({"distributed_backend": "gloo",
+                                  "device": O_DEVICE})
+    out = {"phases": {}}
+    reset_counts()
+    t_phase = time.time()
+
+    def phase(name):
+        nonlocal t_phase
+        out["phases"][name] = round(time.time() - t_phase, 2)
+        t_phase = time.time()
+    phase("start-up")
+    # O2: data parallel over the two ranks, each on its half of the batch
+    h = {**O_H, "distributed": True}
+    rec: dict = {}
+    model, tx, state = o_state(h, num_devices=world, record=rec)
+    mesh = make_mesh()
+    step = make_dp_train_step(model, tx, mesh)
+    wave, label = seeded_batch(50, O_SIZES["speakers"], 2, h)
+    b = shard_batch({"wave": wave, "label": label}, mesh, device=o_device())
+    phase("O2 build")
+    state, m = step(state, b["wave"], b["label"], h["lr"])
+    o_sync()
+    out["o2"] = {"loss": float(m["loss"]), "prec1": float(m["prec1"]),
+                 "stats": {k: v.detach().cpu().clone()
+                           for k, v in state.batch_stats.items()},
+                 "grads": ({k: g.cpu() for k, g in rec["grads"].items()}
+                           if rank == 0 else None),
+                 "crops": int(b["wave"].shape[0] * b["wave"].shape[1])}
+    phase("O2 first step (cuDNN's plans timed)")
+    # a second step, its plans cached, for the wall
+    t0 = time.time()
+    step(state, b["wave"], b["label"], h["lr"])
+    o_sync()
+    out["o2"]["wall_s"] = time.time() - t0
+    phase("O2 second step")
+    del model, tx, state, step
+    # O3: data 1 x model 2, the class-sharded head
+    h3 = {**h, "criterion": AAM, "nClasses": O_SIZES["tp_classes"],
+          "model_parallel": 2}
+    rec = {}
+    model, tx, state = o_state(h3, num_devices=world, record=rec)
+    mesh2 = make_mesh(("data", "model"), (world // 2, 2))
+    state = shard_state_tp(state, mesh2)
+    step = make_dp_tp_train_step(model, tx, mesh2, state)
+    wave, label = seeded_batch(50, O_SIZES["tp_speakers"], 2, h3)
+    b = shard_batch({"wave": wave, "label": label}, mesh2, device=o_device())
+    phase("O3 build")
+    o_sync()
+    t0 = time.time()
+    state, m = step(state, b["wave"], b["label"], h3["lr"])
+    o_sync()
+    phase("O3 step")
+    leaves = dict(state_leaves(state))
+    out["o3"] = {"loss": float(m["loss"]), "prec1": float(m["prec1"]),
+                 "wall_s": time.time() - t0,
+                 "head_bytes": {p: leaves[p].numel() * leaves[p].element_size()
+                                for p in state.shards},
+                 "rows": [v[:2] for v in state.shards.values()][0],
+                 "grads": {k: g.cpu() for k, g in rec["grads"].items()
+                           if k.startswith("loss.") or rank == 0}}
+    # O5: O3's state saved sharded, asynchronously, and as msgpack
+    timings = {}
+    t0 = time.time()
+    cs.save_sharded(workdir / "o5_sync", state, meta={"step": state.step})
+    timings["save_s"] = time.time() - t0
+    t0 = time.time()
+    cs.async_save_sharded(workdir / "o5_async", state)
+    timings["async_return_s"] = time.time() - t0
+    cs.wait(workdir / "o5_async")
+    timings["async_durable_s"] = time.time() - t0
+    t0 = time.time()
+    tree = state_to_jax(state)
+    if rank == 0:
+        codec.save_checkpoint(workdir / "o3.msgpack", tree)
+    timings["msgpack_s"] = time.time() - t0
+    out["o5"] = timings
+    phase("O5 saves")
+    del model, tx, state, step
+    # O6: the CLI in these two ranks (the SVTPU_* variables name them)
+    import contextlib
+    import io
+    import shutil
+    from speakerverification_tpu_torch.cli.main import main as cli_main
+    dev_args = [] if O_DEVICE == "cuda" else ["--device", O_DEVICE]
+    o6 = {}
+    for verb, args in (("train", ["--do_train", "--model_parallel", "2"]),
+                       ("eval", ["--do_infer", "--eval"])):
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main([*args, "--config", cfg["o6"], "--distributed",
+                           "--distributed_backend", "gloo", *dev_args])
+        o6[verb] = {"rc": rc, "s": time.time() - t0, "out": buf.getvalue()}
+        phase(f"O6 {' '.join(args)}")
+    if rank == 0:
+        result = Path(cfg["o6_result"])
+        shutil.move(result, result.with_name("split_" + result.name))
+    out["o6"] = o6
+    out["counts"] = read_counts()
+    torch.save(out, workdir / f"out_{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def o_spawn(args, workdir, world: int = 2, timeout: float = 600.0) -> list:
+    """``world`` processes of ``python args`` from the repo's root, wired
+    by the ``SVTPU_*`` variables through a file store in ``workdir``;
+    fails the script when one fails. Returns their outputs."""
+    import os
+    from pathlib import Path
+    root = Path(__file__).resolve().parent
+    store = workdir / f"store-{time.time_ns()}"
+    procs = []
+    for r in range(world):
+        env = {**os.environ, "SVTPU_COORDINATOR": f"file://{store}",
+               "SVTPU_NUM_PROCESSES": str(world),
+               "SVTPU_PROCESS_ID": str(r), "LOCAL_RANK": "0",
+               # the host's cores shared between the ranks
+               "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 2)
+                                         // world)),
+               "PYTHONPATH": os.pathsep.join(
+                   [str(root), os.environ.get("PYTHONPATH", "")])}
+        procs.append(subprocess.Popen(
+            [sys.executable, *[str(a) for a in args]], env=env, cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    for r in bad:
+        log(f"[O rank {r} of {' '.join(map(str, args[:3]))}]\n"
+            + (outs[r][-6000:] if r < len(outs) else ""))
+    if bad:
+        fail(f"path O: ranks {bad} of {' '.join(map(str, args[:3]))} failed")
+    return outs
+
+
+def path_o_ranks(tmp, card: str) -> dict:
+    """O2, O3 and O5 in two ranks on one device over gloo, against the
+    one-process references computed here first."""
+    import torch
+    from speakerverification_tpu_torch.training.train_step import (
+        make_train_step,
+    )
+    h = O_H
+    wave, label = o_batch(h, 50)
+    # the references: accumulate_steps 2 on the whole batch (O2), and the
+    # unsharded head (O3)
+    rec2: dict = {}
+    model, tx, state = o_state(h, record=rec2)
+    state, m2 = make_train_step(model, tx, accum_steps=2)(
+        state, wave, label, h["lr"])
+    ref2 = {"loss": float(m2["loss"]), "grads": rec2["grads"],
+            "stats": {k: v.clone() for k, v in state.batch_stats.items()}}
+    h3 = {**h, "criterion": AAM, "nClasses": O_SIZES["tp_classes"]}
+    wave, label = o_batch(h3, 50, O_SIZES["tp_speakers"])
+    rec3: dict = {}
+    model, tx, state = o_state(h3, record=rec3)
+    state, m3 = make_train_step(model, tx)(state, wave, label, h["lr"])
+    ref3 = {"loss": float(m3["loss"]), "prec1": float(m3["prec1"]),
+            "grads": rec3["grads"]}
+    del model, tx, state
+    if O_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    work = tmp / "o_ranks"
+    work.mkdir()
+    o6_path, o6_run, n_trials = o6_config(tmp)
+    (work / "o_inputs.json").write_text(json.dumps(
+        {"device": O_DEVICE, "h": h, "sizes": O_SIZES, "o6": str(o6_path),
+         "o6_result": str(o6_run / "result" / "evaluation_results.csv")}))
+    t0 = time.time()
+    o_spawn([script_path(), "--o-rank", "2", work], work)
+    wall = time.time() - t0
+    ranks = [torch.load(work / f"out_{r}.pt", weights_only=False)
+             for r in range(2)]
+    # O2
+    r0, r1 = ranks[0]["o2"], ranks[1]["o2"]
+    loss_rel = abs(r0["loss"] - ref2["loss"]) / abs(ref2["loss"])
+    cos, at = leaf_cosines(r0["grads"], ref2["grads"])
+    stats_same = all(torch.equal(r0["stats"][k], r1["stats"][k])
+                     for k in r0["stats"])
+    stats_rel = max(float((r0["stats"][k] - v.cpu()).abs().max()
+                          / v.abs().max().clamp_min(1e-30))
+                    for k, v in ref2["stats"].items())
+    ok = (loss_rel <= O_BARS["o2_loss"] and cos >= O_BARS["grad_cos"]
+          and stats_same)
+    log(f"[O2] two ranks on one device over gloo, {r0['crops']} crops each, "
+        f"vs one process with accumulate_steps 2 on the whole batch: loss "
+        f"{r0['loss']:.6f} vs {ref2['loss']:.6f} (rel {loss_rel:.2e}, bar "
+        f"{O_BARS['o2_loss']:g}), lowest gradient cosine {cos:.7f} at {at} "
+        f"(bar {O_BARS['grad_cos']}); BN statistics equal on both ranks "
+        f"{stats_same} (their mean; largest relative difference to the "
+        f"accumulated step's {stats_rel:.2e}); a second step's wall "
+        f"(cuDNN's plans cached) rank 0 {r0['wall_s'] * 1e3:.1f} ms, rank 1 "
+        f"{r1['wall_s'] * 1e3:.1f} ms ({card}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("path O2: the two-rank DP step disagrees with the accumulated "
+             "step")
+    # O3
+    a, b = ranks[0]["o3"], ranks[1]["o3"]
+    got = {k: (torch.cat([a["grads"][k], b["grads"][k]])
+               if k.startswith("loss.") else g) for k, g in a["grads"].items()}
+    cos3, at3 = leaf_cosines(got, ref3["grads"])
+    dl = abs(a["loss"] - ref3["loss"]) / abs(ref3["loss"])
+    dp1 = abs(a["prec1"] - ref3["prec1"])
+    ok = (dl <= O_BARS["o3_metrics"] and dp1 <= O_BARS["o3_metrics"]
+          and cos3 >= O_BARS["grad_cos"] and a["loss"] == b["loss"])
+    log(f"[O3] data 1 x model 2 on one device, AAmSoftmax over "
+        f"{O_SIZES['tp_classes']} classes, {2 * O_SIZES['tp_speakers']} "
+        f"crops, vs the unsharded step: loss "
+        f"{a['loss']:.6f} vs {ref3['loss']:.6f} (rel {dl:.2e}), prec1 "
+        f"{a['prec1']:.4f} vs {ref3['prec1']:.4f} (bar "
+        f"{O_BARS['o3_metrics']:g}), lowest gradient cosine {cos3:.7f} at "
+        f"{at3} (bar {O_BARS['grad_cos']}); rows per rank {a['rows']}, "
+        f"{b['rows']}; bytes per rank of the head and its moments "
+        f"{sum(a['head_bytes'].values())}, {sum(b['head_bytes'].values())} "
+        f"({a['head_bytes']}); the step's wall {a['wall_s'] * 1e3:.1f} ms "
+        f"(O2's convolution plans) ({card}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("path O3: the class-sharded step disagrees with the unsharded")
+    o5 = path_o5(work, ranks, card)
+    counts = {k: ranks[0]["counts"][k] + ranks[1]["counts"][k]
+              for k in KERNELS}
+    log(f"[O2-O6] the two ranks' wall {wall:.1f} s, rank 0's phases (s) "
+        f"{json.dumps(ranks[0]['phases'])}; their launches {counts}")
+    o6 = path_o6(o6_path, o6_run, n_trials, [r["o6"] for r in ranks], card)
+    return {"counts": counts, "o5": o5, "o6": o6}
+
+
+def script_path():
+    from pathlib import Path
+    return Path(__file__).resolve()
+
+
+def _du(path) -> int:
+    from pathlib import Path
+    p = Path(path)
+    return sum(f.stat().st_size for f in p.rglob("*") if f.is_file()) \
+        if p.is_dir() else p.stat().st_size
+
+
+def path_o5(work, ranks, card: str) -> dict:
+    """O5: O3's sharded checkpoints read into one process (world size 1)
+    equal the state the ranks gathered (its msgpack), bit for bit; so
+    does the msgpack read back."""
+    from speakerverification_tpu_torch import checkpoint as codec
+    from speakerverification_tpu_torch.training import (
+        checkpoint_sharded as cs,
+    )
+    from speakerverification_tpu_torch.training.checkpoint import (
+        load_checkpoint,
+        state_to_jax,
+    )
+    # targets of the unsharded head (the parameters keep their names):
+    # copies of O3's reference state, whose values the reads replace
+    h3 = {**O_H, "criterion": AAM, "nClasses": O_SIZES["tp_classes"]}
+    gathered = codec.load_checkpoint(work / "o3.msgpack")
+    where = {}
+    for name in ("o5_sync", "o5_async"):
+        _, _, state = o_state(h3)
+        cs.restore_sharded(work / name, state)
+        where[name] = trees_equal(state_to_jax(state), gathered)
+    _, _, state = o_state(h3)
+    load_checkpoint(work / "o3.msgpack", state)
+    where["msgpack"] = trees_equal(state_to_jax(state), gathered)
+    ok = not any(where.values())
+    t = [r["o5"] for r in ranks]
+    sizes = {"sharded": _du(work / "o5_sync"),
+             "sharded async": _du(work / "o5_async"),
+             "msgpack": _du(work / "o3.msgpack")}
+    log(f"[O5] O3's state read into one process from the sharded save, "
+        f"the async save and the msgpack, each against the state the ranks "
+        f"gathered: equal bit for bit {'yes' if ok else where} "
+        f"{'ok' if ok else 'FAIL'}")
+    log(f"[O5] seconds on rank 0 / 1: save_sharded "
+        f"{t[0]['save_s']:.3f} / {t[1]['save_s']:.3f}, async_save_sharded "
+        f"returns {t[0]['async_return_s']:.3f} / {t[1]['async_return_s']:.3f} "
+        f"and is durable after {t[0]['async_durable_s']:.3f} / "
+        f"{t[1]['async_durable_s']:.3f}, the msgpack (gather, rank 0 "
+        f"writes) {t[0]['msgpack_s']:.3f} / {t[1]['msgpack_s']:.3f}; bytes "
+        f"{sizes} ({card})")
+    if not ok:
+        fail("path O5: a restored state differs from the gathered state")
+    return {"seconds": t, "bytes": sizes}
+
+
+def path_o4(card: str) -> dict:
+    """O4: a ShardedSpeakerBank of two shards on one device against the
+    one-device bank, timed; the eval embedding split over the device
+    named twice (K1 and K2) against one device."""
+    import numpy as np
+    import torch
+    from speakerverification_tpu_torch.builder import encoder_from_hparams
+    from speakerverification_tpu_torch.evaluation.bank import (
+        ShardedSpeakerBank,
+        SpeakerBank,
+    )
+    from speakerverification_tpu_torch.inference import make_eval_embed_fn
+    from speakerverification_tpu_torch.weights import init_weights_
+    dev = o_device()
+    N, D, Q = (O_SIZES["bank_rows"], O_SIZES["bank_dim"],
+               O_SIZES["bank_queries"])
+    gen = torch.Generator(device=dev).manual_seed(81)
+    rows = torch.randn(N, D, generator=gen, device=dev)
+    rows /= rows.norm(dim=1, keepdim=True)
+    pick = torch.randint(0, N, (Q,), generator=gen, device=dev)
+    queries = rows[pick] + 0.05 * torch.randn(Q, D, generator=gen,
+                                              device=dev)
+    one = SpeakerBank(rows, device=dev)
+    many = ShardedSpeakerBank(rows, devices=[dev, dev])
+    del rows
+    s1, i1 = one.identify(queries, k=5)
+    s2, i2 = many.identify(queries, k=5)
+    err = float(np.abs(s1 - s2).max())
+    found = bool((i2[:, 0] == pick.cpu().numpy()).all())
+    ok = bool((i1 == i2).all()) and err <= O_BARS["bank_scores"] and found
+    timer = (lambda fn: cuda_ms(fn, iters=10)) if O_DEVICE == "cuda" else \
+        (lambda fn: (lambda t0: (fn(), (time.time() - t0) * 1e3)[1])(
+            time.time()))
+    ms_one = timer(lambda: one.identify(queries, k=5))
+    ms_many = timer(lambda: many.identify(queries, k=5))
+    log(f"[O4 bank] {N:,} x {D} in two shards on one device vs one bank, "
+        f"{Q} queries, top 5: indices equal {bool((i1 == i2).all())}, each "
+        f"query's row first {found}, scores max |diff| {err:.2e} (bar "
+        f"{O_BARS['bank_scores']:g}); ms per identify: one bank "
+        f"{ms_one:.3f}, sharded {ms_many:.3f}; "
+        f"{many.nbytes / 1e9:.3f} GB in {many.n_dev} shards of "
+        f"{many.shard_rows:,} rows ({card}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("path O4: the sharded bank disagrees with the one-device bank")
+    del one, many
+    if O_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    h = O_EMBED_H
+    model = encoder_from_hparams(h)
+    init_weights_(model, torch.Generator().manual_seed(13))
+    randomize_bn_(model, 14)
+    model = model.to(dev)
+    spec = h["audio_spec"]
+    samples = int(spec["sentence_len"] * spec["sample_rate"])
+    waves = torch.from_numpy((0.1 * np.random.default_rng(15).normal(
+        0, 1, (O_SIZES["embed_crops"], samples))).astype(np.float32))
+    want = make_eval_embed_fn(model)(waves)
+    split = make_eval_embed_fn(model, devices=[dev, dev])
+    before = read_counts()
+    got = split(waves)
+    o_sync()
+    launched = {k: read_counts()[k] - before[k] for k in KERNELS}
+    cos = float(torch.nn.functional.cosine_similarity(
+        got.double(), want.double(), dim=1).min())
+    ok = cos >= O_BARS["embed_cos"] and tuple(got.shape) == tuple(
+        want.shape)
+    if O_DEVICE == "cuda":
+        ok = ok and launched["mel_frontend"] >= 1 \
+            and launched["res2net_cascade"] >= 1
+    log(f"[O4 eval] {h['model']['name']} with conv_backend pallas, "
+        f"{len(waves)} crops split over the device named twice vs one "
+        f"device: min cosine {cos:.9f} (bar {O_BARS['embed_cos']}); "
+        f"launches in the split call {launched} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("path O4: the split eval embedding disagrees or skipped K1/K2")
+    return {"ms_one": ms_one, "ms_sharded": ms_many, "cos": cos}
+
+
+def o6_config(tmp):
+    """O6's corpus (``cli_speakers`` speakers' WAVs, a trial list) and its
+    config: the default stack's keys with AAmSoftmax, one epoch, sharded
+    checkpoints. Returns ``(config path, run directory, trials)``."""
+    root = tmp / "o6"
+    trials, n_trials = write_train_corpus(
+        root, O_H["audio_spec"]["sample_rate"], n_spk=O_SIZES["cli_speakers"])
+    cfg = {**O_H, "criterion": AAM, "nClasses": O_SIZES["tp_classes"],
+           "number_of_epochs": 1, "sharded_checkpoints": True,
+           "save_folder": str(root / "save"),
+           "data_folder": str(root / "data"),
+           "train_annotation": str(root / "meta" / "train.csv"),
+           "evaluation_file": str(trials), "pretrained": {"use": False}}
+    path = root / "o6.yaml"
+    path.write_text(json.dumps(cfg, indent=1))
+    return path, root / "save" / O_H["model"]["name"] / "AAmSoftmax", \
+        n_trials
+
+
+def path_o6(path, run, n_trials: int, ranks: list, card: str) -> dict:
+    """O6: ``--do_train --distributed --distributed_backend gloo
+    --model_parallel 2`` run by the two ranks of O2-O5 on the default
+    stack's keys with AAmSoftmax and sharded checkpoints, one epoch, then
+    ``--do_infer --eval`` from its checkpoint in the same two ranks (the
+    files split): against ``--do_infer --eval`` in this one process."""
+    import contextlib
+    import csv
+    import io
+    from speakerverification_tpu_torch.cli.main import main as cli_main
+    from speakerverification_tpu_torch.training import (
+        checkpoint_sharded as cs,
+    )
+    train, split_eval = ranks[0]["train"], ranks[0]["eval"]
+    for line in train["out"].splitlines():
+        if line.startswith(("[INFO]", "[E0", "[DONE]", "[WARN]")):
+            log(f"[O6 train] {line}")
+    bad = [(v, r[v]["rc"]) for r in ranks for v in ("train", "eval")
+           if r[v]["rc"] != 0]
+    log_meta = json.loads((run / "model" / "model_state_log.json")
+                          .read_text())
+    sharded = [n for n in ("best_state", "last_state")
+               if cs.is_sharded_checkpoint(run / "model" / n)]
+    if bad or len(sharded) != 2 or "x 2 model shards" not in train["out"]:
+        fail(f"path O6: the ranks' CLI runs ended {bad}, left {sharded}")
+    split = list(csv.reader((run / "result" /
+                             "split_evaluation_results.csv").open()))
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["--do_infer", "--eval", "--config", str(path),
+                       *([] if O_DEVICE == "cuda" else ["--device",
+                                                         O_DEVICE])])
+    one_s = time.time() - t0
+    result = run / "result" / "evaluation_results.csv"
+    whole = list(csv.reader(result.open())) if rc == 0 else []
+    same_rows = [(r[0], r[2]) for r in split] == [(r[0], r[2])
+                                                  for r in whole]
+    diff = max((abs(float(a[1]) - float(b[1]))
+                for a, b in zip(split[1:], whole[1:])), default=float("inf"))
+    ok = (rc == 0 and same_rows and len(whole) == n_trials + 1
+          and diff <= O_BARS["cli_scores"])
+    log(f"[O6] --do_train in the two ranks (data 1 x model 2, sharded "
+        f"checkpoints {sharded}): {log_meta['step']} steps of "
+        f"{2 * O_H['dataloader_options']['batch_size']} crops, "
+        f"{train['s']:.1f} s; --do_infer --eval split over them "
+        f"{split_eval['s']:.1f} s, in one process {one_s:.1f} s: "
+        f"{len(whole) - 1} trials, the same trials and labels {same_rows}, "
+        f"scores bit for bit {diff == 0.0}, max |diff| {diff:.2e} (bar "
+        f"{O_BARS['cli_scores']:g}) ({card}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("path O6: the split evaluation differs from one process's")
+    return {"train_s": train["s"], "eval_s": split_eval["s"],
+            "one_s": one_s, "diff": diff}
+
+
+def path_o(tmp, card: str) -> dict:
+    """Path O: O1-O6, the launches counted from 0 over all of them (the
+    ranks' own counts added)."""
+    t_all = time.time()
+    reset_counts()
+    walls = {}
+    t0 = time.time()
+    o1 = path_o1(tmp, card)
+    walls["O1"] = time.time() - t0
+    t0 = time.time()
+    ranks = path_o_ranks(tmp, card)
+    walls["O2,O3,O5,O6"] = time.time() - t0
+    t0 = time.time()
+    o4 = path_o4(card)
+    walls["O4"] = time.time() - t0
+    here = read_counts()
+    counts = {k: here[k] + ranks["counts"][k] for k in KERNELS}
+    log(f"[O] launches over O1-O6 (the ranks' included): {counts}; wall "
+        f"{time.time() - t_all:.1f} s by phase "
+        f"{json.dumps({k: round(v, 1) for k, v in walls.items()})} ({card})")
+    if O_DEVICE == "cuda" and not (counts["mel_frontend"] >= 1
+                                   and counts["res2net_cascade"] >= 1):
+        fail(f"path O: K1 or K2 never launched ({counts})")
+    return {"counts": counts, "o1": o1, "o4": o4, "o5": ranks["o5"],
+            "o6": ranks["o6"]}
+
+
+def multi_gpu() -> None:
+    """Path O alone, after the kernels' build: the quick check of the
+    multi-GPU slice."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_kernels()
+    tmp = Path(tempfile.mkdtemp(prefix="svtorch_multi_"))
+    try:
+        out = path_o(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[O] passed in {time.time() - T_START:.1f} s; launches "
+        f"{out['counts']} ({card})")
+
+
+# ----------------------------------------------------------------------
 # F2's fp32 convolution gradient: remedies side by side (--f2-conv)
 # ----------------------------------------------------------------------
 # each in a process of its own: cuDNN's algorithm cache, its workspace
@@ -5893,8 +6671,12 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    global PROFILE_STEPS, LOADER_BATCHES
+    global PROFILE_STEPS, LOADER_BATCHES, L2_STEPS, L3_STEPS, L3_UPDATES
+    global TIMED_STEPS_CAP, C_LIST_SHARE
+    # the whole script's depth cuts (path O brought it past PR 16's wall)
     PROFILE_STEPS, LOADER_BATCHES = False, 8
+    L2_STEPS, L3_STEPS, L3_UPDATES = 6, 3, 2
+    TIMED_STEPS_CAP, C_LIST_SHARE = 3, 0.5
     t_start = time.time()
     marks = [("start", t_start)]
 
@@ -5987,13 +6769,19 @@ def main() -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     mark("N")
+    tmp = Path(tempfile.mkdtemp(prefix="svtorch_multi_"))
+    try:
+        o = path_o(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    mark("O")
     log("[wall by path] " + json.dumps(
         {n: round(t - t0, 1) for (_, t0), (n, t) in zip(marks, marks[1:])}))
     paths = {"A": a["counts"], "B": b["counts"], "C": c["counts"],
              "D": d["counts"], "E": e["counts"], "F": f["counts"],
              "G": g["counts"], "H": h["counts"], "I": i["counts"],
              "J": j["counts"], "L": l_["counts"], "M": m["counts"],
-             "N": n["counts"]}
+             "N": n["counts"], "O": o["counts"]}
     by_path = {k: {p: counts[k] for p, counts in paths.items()}
                for k in KERNELS}
 
@@ -6078,5 +6866,9 @@ if __name__ == "__main__":
         model_zoo()
     elif sys.argv[1:2] == ["--export-tools"]:
         export_tools()
+    elif sys.argv[1:2] == ["--multi-gpu"]:
+        multi_gpu()
+    elif sys.argv[1:2] == ["--o-rank"]:
+        o_rank_main(int(sys.argv[2]), sys.argv[3])
     else:
         main()

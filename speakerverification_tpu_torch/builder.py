@@ -11,7 +11,11 @@ schedule (``callbacks``). ``frontend_backend`` and
 selects the port's hand-written kernel, ``'xla'`` the plain PyTorch
 path, ``'auto'`` the kernel on CUDA. SpecAugment (``ops/specaugment.py``)
 joins the training forward when ``augment`` is on and ``augment_options.
-augment_chain`` has ``spec_domain``.
+augment_chain`` has ``spec_domain``. Under ``distributed`` with more
+than one process (``num_devices``), the encoder gathers the embeddings
+over the ``data`` axis before the head (``gather_metric_embeddings``,
+on by default); with ``model_parallel > 1`` the head ``AAmSoftmax``
+becomes its class-sharded twin ``ShardedAAmSoftmax``.
 """
 
 from __future__ import annotations
@@ -83,11 +87,14 @@ def build_model(name: str, **kwargs):
 
 
 def encoder_from_hparams(hparams: Mapping,
-                         with_loss: bool = False) -> SpeakerEncoder:
+                         with_loss: bool = False,
+                         num_devices: Optional[int] = None) -> SpeakerEncoder:
     """Build the ``SpeakerEncoder`` from a config; ``with_loss`` adds the
     loss head that ``criterion`` names (default ``AAmSoftmax``) over
     ``nClasses``. The inference engine and the server build without
-    one: the embedding path does not run it."""
+    one: the embedding path does not run it. ``num_devices``: the ranks
+    the train step runs over (default: the process group's size), which
+    gates the gather of the embeddings."""
     model_cfg = dict(hparams.get("model", {}))
     name = model_cfg.pop("name", "ECAPA_TDNN")
     n_out = int(model_cfg.pop("nOut", 192))
@@ -146,18 +153,32 @@ def encoder_from_hparams(hparams: Mapping,
         crit = dict(hparams.get("criterion", {}))
         crit_name = crit.pop("name", "AAmSoftmax")
         if int(hparams.get("model_parallel", 1) or 1) > 1:
-            raise NotImplementedError(
-                "model_parallel > 1 (the class-sharded head) is not ported "
-                "yet: the port trains on one device")
+            # the class-sharded head over the model axis (parallel/tp.py):
+            # the plain margin head maps onto its sharded twin, other
+            # heads must opt in
+            if crit_name == "AAmSoftmax":
+                crit_name = "ShardedAAmSoftmax"
+            elif crit_name != "ShardedAAmSoftmax":
+                raise ValueError(
+                    f"model_parallel > 1 requires a class-sharded loss "
+                    f"head (ShardedAAmSoftmax), got {crit_name}")
         loss = build_loss(crit_name, nOut=n_out,
                           nClasses=int(hparams.get("nClasses", 2)), **crit)
+
+    if num_devices is None:
+        from speakerverification_tpu_torch.parallel.mesh import world_size
+        num_devices = world_size()
+    gather_axis = None
+    if hparams.get("distributed") and num_devices > 1 and hparams.get(
+            "gather_metric_embeddings", True):
+        gather_axis = "data"
 
     return SpeakerEncoder(backbone=backbone, loss=loss,
                           feature_type=feature_type,
                           frontend=frontend_from_hparams(hparams, feature_type),
                           frontend_backend=fe_backend,
                           compute_dtype=compute_dtype,
-                          spec_augment=spec_aug)
+                          spec_augment=spec_aug, gather_axis=gather_axis)
 
 
 def optimizer_from_hparams(hparams: Mapping):

@@ -23,8 +23,10 @@ tolerance: a missing or shape-mismatched leaf stays at its initial value
 and is reported; a present subtree that shares no leaf names with the
 model's, or a load that restores nothing, raises. A checkpoint's
 subtrees the template lacks (the ``loss`` head, for an engine that embeds
-without one) are read and reported, not restored. Orbax directories (``training/checkpoint_sharded.py``) are
-refused by name.
+without one) are read and reported, not restored. The port's own
+sharded checkpoint directories (``training/checkpoint_sharded.py``) load
+through the same functions, assembled into the msgpack tree; the JAX
+package's orbax directories are refused by name.
 """
 
 from __future__ import annotations
@@ -314,11 +316,19 @@ def msgpack_serialize(tree: Any) -> bytes:
 # ----------------------------------------------------------------------
 # files
 # ----------------------------------------------------------------------
-def _refuse_orbax(path: Path) -> None:
-    if path.is_dir():
-        raise ValueError(f"{path} is a directory: orbax sharded checkpoints "
-                         "(training/checkpoint_sharded.py) are not read by "
-                         "the port yet; save a msgpack checkpoint instead")
+def _refuse_directory(path: Path) -> None:
+    """A directory that is not the port's sharded checkpoint raises;
+    the JAX package's orbax directories are refused by name."""
+    from speakerverification_tpu_torch.training.checkpoint_sharded import (
+        is_orbax_checkpoint,
+    )
+    if is_orbax_checkpoint(path):
+        raise ValueError(f"{path} is an orbax sharded checkpoint of the JAX "
+                         "package (training/checkpoint_sharded.py): the port "
+                         "does not read orbax's store; save a msgpack "
+                         "checkpoint instead")
+    raise ValueError(f"{path} is a directory but not a sharded checkpoint "
+                     "of the port")
 
 
 def save_checkpoint(path: str | Path, tree: Any,
@@ -333,10 +343,19 @@ def save_checkpoint(path: str | Path, tree: Any,
     return path
 
 
-def load_checkpoint(path: str | Path) -> Any:
-    """The raw tree of a msgpack checkpoint."""
+def load_checkpoint(path: str | Path, params_only: bool = False) -> Any:
+    """The raw tree of a msgpack checkpoint, or of the port's sharded
+    checkpoint directory (``training/checkpoint_sharded.py``) assembled
+    into the same tree; ``params_only`` spares a directory's optimizer
+    state the read."""
     path = Path(path)
-    _refuse_orbax(path)
+    if path.is_dir():
+        from speakerverification_tpu_torch.training import (
+            checkpoint_sharded as sharded,
+        )
+        if not sharded.is_sharded_checkpoint(path):
+            _refuse_directory(path)
+        return sharded.raw_tree(path, params_only=params_only)
     return msgpack_restore(path.read_bytes())
 
 
@@ -435,7 +454,7 @@ def _tolerant(path, cur, saved, what: str):
 def load_params_only(path: str | Path, state: dict) -> dict:
     """``state`` (``{"params": ..., "batch_stats": ...}``) with the
     checkpoint's params and batch statistics merged in."""
-    raw = load_checkpoint(path)
+    raw = load_checkpoint(path, params_only=True)
     new = dict(state)
     new["params"] = _tolerant(path, state["params"], raw["params"], "param")
     if raw.get("batch_stats"):

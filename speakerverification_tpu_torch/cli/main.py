@@ -16,21 +16,41 @@ runs the preparation that the YAML key ``prepare`` names, ``cohorts``
 by default). ``--do_infer`` runs its verbs in the JAX order (prepare,
 eval, test, predict); with none of them it exits 2. The resolved config
 is frozen into the run's ``config/config_frozen.yaml``. ``--do_train``
-trains on one device (the manifests are generated from ``data_folder``
-when ``train_annotation`` is missing; ``--augment`` turns on the yaml's
+trains (the manifests are generated from ``data_folder`` when
+``train_annotation`` is missing; ``--augment`` turns on the yaml's
 ``augment_options``). ``--do_export`` writes the ``torch.export``
 program, the JAX-layout weights and the config to the run's
 ``model/export/`` (``export.py``; ``quant: int8`` is refused).
 ``--list_components`` prints the four registries and ``--sys_info`` the
 host, torch, CUDA and the devices; neither needs ``--config``.
-``--distributed``, ``--data_parallel`` and ``--model_parallel`` are not
-ported and exit 2.
+
+Several GPUs, one process each (``parallel/multihost.py``):
+``--distributed`` (alias ``--data_parallel``) trains data-parallel and
+evaluates with the file list split over the processes;
+``--model_parallel m`` adds the class-sharded head over m processes.
+The processes come from the environment (``SVTPU_COORDINATOR`` /
+``SVTPU_NUM_PROCESSES`` / ``SVTPU_PROCESS_ID``, or torchrun's), or, when
+none is given and more than one GPU is visible, ``--distributed`` starts
+one process per GPU itself on a free local port (``--port`` picks it), as
+the reference spawns its DDP workers; the kernels are built once, before.
+With one GPU it runs in this process. ``--distributed_backend`` is the
+process group's backend (``nccl`` by default on CUDA, ``gloo`` on the
+CPU; ``mpi`` and ``ici`` exit 2).
+
+    torchrun --nproc_per_node 4 -m speakerverification_tpu_torch.cli.main \
+        --do_train --distributed --config y.yaml
+    python -m speakerverification_tpu_torch.cli.main --do_train \
+        --distributed --model_parallel 2 --config y.yaml
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import socket
+import subprocess
 import sys
+import time
 from pathlib import Path
 
 from speakerverification_tpu_torch.config import dump_config, read_config
@@ -41,8 +61,6 @@ _MODE_FLAGS = {"config", "do_train", "do_infer", "do_export", "do_serve",
                "serve_host", "serve_port", "eval", "test", "prepare",
                "predict", "device", "sys_info", "list_components"}
 
-
-_REFUSED_FLAGS = ("distributed", "data_parallel")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -99,22 +117,66 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--list_components", action="store_true",
                    help="print every registered model/loss/optimizer/"
                         "scheduler name and exit")
-    # the JAX CLI's multi-device flags: not ported
-    for flag in _REFUSED_FLAGS:
-        p.add_argument(f"--{flag}", action="store_true", default=None)
-    p.add_argument("--model_parallel", type=int, default=None)
+    p.add_argument("--distributed", action="store_true", default=None,
+                   help="several GPUs, one process each (data-parallel "
+                        "training, split evaluation)")
+    p.add_argument("--data_parallel", action="store_true", default=None,
+                   help="alias of --distributed")
+    p.add_argument("--model_parallel", type=int, default=None,
+                   help="shard the classifier head's classes over this "
+                        "many processes (needs --distributed)")
+    p.add_argument("--distributed_backend", type=str, default=None,
+                   choices=["nccl", "gloo", "mpi", "ici"],
+                   help="process group backend (default: nccl on CUDA, "
+                        "gloo on the CPU)")
+    p.add_argument("--port", type=str, default=None,
+                   help="rendezvous port on localhost")
     return p
 
 
 def load_hparams(args: argparse.Namespace) -> dict:
     overrides = {k: v for k, v in vars(args).items()
                  if v is not None and k not in _MODE_FLAGS}
+    if overrides.pop("data_parallel", None):
+        overrides["distributed"] = True
     return read_config(args.config, overrides=overrides)
 
 
-def _not_ported(what: str) -> int:
-    print(f"{what} is not ported yet", file=sys.stderr)
-    return 2
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(argv, n: int, port=None) -> int:
+    """Run this command line in ``n`` processes, one per GPU, wired by
+    the ``SVTPU_*`` variables on a localhost port; the first rank to fail
+    stops the others. Returns the worst exit code."""
+    from speakerverification_tpu_torch.ops import _build
+    # built once here: the ranks find the libraries and build nothing
+    _build.build("mel_frontend", "res2net_cascade", "quant_matmul")
+    port = port or _free_port()
+    procs = []
+    for r in range(n):
+        env = {**os.environ, "SVTPU_NUM_PROCESSES": str(n),
+               "SVTPU_PROCESS_ID": str(r), "LOCAL_RANK": str(r),
+               "SVTPU_COORDINATOR": f"localhost:{port}"}
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "speakerverification_tpu_torch.cli.main",
+             *argv], env=env))
+    print(f"[INFO] started {n} processes (rendezvous localhost:{port})")
+    rcs = [None] * n
+    while any(rc is None for rc in rcs):
+        for i, p in enumerate(procs):
+            rcs[i] = p.poll()
+        if any(rc not in (None, 0) for rc in rcs):
+            for p in procs:
+                if p.poll() is None:
+                    p.terminate()
+            rcs = [p.wait() for p in procs]
+            break
+        time.sleep(0.2)
+    return max(abs(rc) for rc in rcs)
 
 
 def ensure_metadata(hparams: dict) -> None:
@@ -165,17 +227,36 @@ def main(argv=None) -> int:
         print(format_sys_information())
         if not args.config:
             return 0
-    for flag in _REFUSED_FLAGS:
-        if getattr(args, flag):
-            return _not_ported(f"--{flag}")
-    if (args.model_parallel or 1) > 1:
-        return _not_ported("--model_parallel")
+    if args.distributed_backend in ("mpi", "ici"):
+        from speakerverification_tpu_torch.parallel.multihost import (
+            distributed_backend,
+        )
+        try:
+            distributed_backend({"distributed_backend":
+                                 args.distributed_backend})
+        except ValueError as exc:
+            print(str(exc), file=sys.stderr)
+            return 2
     if not args.config:
         print("--config is required", file=sys.stderr)
         return 2
     hparams = load_hparams(args)
+    if hparams.get("distributed") and (args.do_train or args.do_infer):
+        from speakerverification_tpu_torch.parallel.multihost import (
+            maybe_initialize_distributed,
+            rendezvous,
+        )
+        import torch
+        n_gpu = torch.cuda.device_count() if args.device != "cpu" else 0
+        if rendezvous(hparams) is None and n_gpu > 1:
+            return spawn_ranks(list(argv if argv is not None
+                                    else sys.argv[1:]), n_gpu, args.port)
+        maybe_initialize_distributed({**hparams, "device": args.device})
     from speakerverification_tpu_torch.inference import run_dirs
-    dump_config(hparams, run_dirs(hparams)["config"] / "config_frozen.yaml")
+    from speakerverification_tpu_torch.parallel.multihost import is_main
+    if is_main():
+        dump_config(hparams,
+                    run_dirs(hparams)["config"] / "config_frozen.yaml")
 
     if args.do_train:
         ensure_metadata(hparams)

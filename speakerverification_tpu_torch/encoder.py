@@ -10,6 +10,14 @@ the cast, its numbers from the ``rng`` that ``forward`` is given; a
 hybrid backbone featurizes in-model and is handed ``rng`` for its own,
 and a backbone with dropout (``draws_dropout``, the Conformer family)
 is handed it for its masks.
+
+``gather_axis`` (set by ``builder.encoder_from_hparams`` under
+``distributed`` with more than one process): inside a data-parallel step
+that binds that axis to its process group (``parallel/dp.py``), the
+embeddings and labels of every rank are gathered before the loss head,
+so that a metric loss sees the global batch; the gather carries the
+gradient back to each rank's rows (``parallel.collectives.all_gather_rows``).
+Outside such a step the head sees the local batch.
 """
 
 from __future__ import annotations
@@ -27,6 +35,10 @@ from speakerverification_tpu_torch.ops.specaugment import (
     SpecAugmentConfig,
     spec_augment,
 )
+from speakerverification_tpu_torch.parallel.collectives import (
+    all_gather_rows,
+    bound_group,
+)
 
 __all__ = ["SpeakerEncoder"]
 
@@ -38,7 +50,8 @@ class SpeakerEncoder(nn.Module):
                  frontend: FrontendConfig = FrontendConfig(),
                  frontend_backend: str = "auto",
                  compute_dtype: Optional[torch.dtype] = None,
-                 spec_augment: Optional[SpecAugmentConfig] = None):
+                 spec_augment: Optional[SpecAugmentConfig] = None,
+                 gather_axis: Optional[str] = None):
         super().__init__()
         self.backbone = backbone
         self.loss = loss
@@ -51,6 +64,7 @@ class SpeakerEncoder(nn.Module):
         # frontend always computes in fp32
         self.compute_dtype = compute_dtype
         self.spec_augment = spec_augment
+        self.gather_axis = gather_axis
 
     def _frontend_fn(self, wave: torch.Tensor):
         return select_mel_frontend(self.frontend, self.feature_type,
@@ -83,4 +97,9 @@ class SpeakerEncoder(nn.Module):
         emb = self._embed(wave.reshape(-1, wave.shape[-1]), rng)
         if label is None:
             return emb.reshape(-1, n_per, emb.shape[-1]) if grouped else emb
-        return self.loss(emb.reshape(-1, n_per, emb.shape[-1]), label)
+        emb = emb.reshape(-1, n_per, emb.shape[-1])
+        group = bound_group(self.gather_axis)
+        if group is not None:
+            emb = all_gather_rows(emb, group)
+            label = all_gather_rows(label, group)
+        return self.loss(emb, label)

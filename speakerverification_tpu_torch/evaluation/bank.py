@@ -19,9 +19,14 @@ fp32):
 * ties rank as ``lax.top_k`` ranks them: the lower index first.
 
 The product and the top-k are ``torch.matmul`` and ``torch.topk``: the
-JAX package computes them outside any Pallas kernel. The bank sharded
-over several devices (``ShardedSpeakerBank``) comes with the multi-GPU
-slice of the port.
+JAX package computes them outside any Pallas kernel.
+
+:class:`ShardedSpeakerBank` splits the rows over several devices of one
+process (equal padded shards; a list may name one device twice, so one
+card can hold two shards): each shard scores its rows and keeps its
+local top-k, and a global top-k over those candidates gives exactly the
+one-device bank's answer, since every global top-k row is in its own
+shard's top-k. The ``[Q, N]`` scores never exist whole.
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ from typing import Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["SpeakerBank", "identify_with_bank", "AUTO_DEVICE_BANK_MIN_ROWS"]
+__all__ = ["SpeakerBank", "ShardedSpeakerBank", "identify_with_bank",
+           "AUTO_DEVICE_BANK_MIN_ROWS"]
 
 # banks at or above this many rows route /identify and --predict through
 # the device product by default; below it a host scan is already fast
@@ -231,7 +237,7 @@ class SpeakerBank:
         last = self.n - 1
         moved = None
         if idx != last:
-            self._bank[idx] = self._bank[last]
+            self._move_row(last, idx)
             moved = idx
         if self._labels is not None:
             if isinstance(self._labels, Mapping):
@@ -248,6 +254,149 @@ class SpeakerBank:
         self.n = last
         self._n_valid.fill_(self.n)
         return moved
+
+    def _move_row(self, src: int, dst: int) -> None:
+        self._bank[dst] = self._bank[src]
+
+
+class ShardedSpeakerBank(SpeakerBank):
+    """:class:`SpeakerBank` with its rows split over ``devices``, in one
+    process: shard i holds rows ``[i·R, (i+1)·R)`` of the padded bank on
+    ``devices[i]`` (R = ``n_pad / len(devices)``, a multiple of
+    ``pad_rows_to``), so the bank may be as large as the cards' memory
+    together. ``identify`` equals :meth:`SpeakerBank.identify`; results
+    come back on the first device. Enrollment (``add``, ``remove``)
+    keeps the row layout, and growth re-pads every shard equally."""
+
+    def __init__(self, embeds, labels: Optional[Sequence | Mapping] = None,
+                 *, devices: Sequence, dtype: torch.dtype = torch.float32,
+                 pad_rows_to: int = 1024,
+                 query_buckets: Sequence[int] = (1, 8, 64, 512)):
+        self.devices = [torch.device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("ShardedSpeakerBank needs at least one device")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"bank dtype must be float32 or bfloat16, got "
+                             f"{dtype}")
+        self.device = self.devices[0]
+        self.n_dev = len(self.devices)
+        src = embeds if isinstance(embeds, torch.Tensor) \
+            else np.asarray(embeds, np.float32)
+        if src.ndim != 2:
+            raise ValueError(f"bank must be [N, D], got {tuple(src.shape)}")
+        self.n, self.dim = int(src.shape[0]), int(src.shape[1])
+        self._pad_unit = int(pad_rows_to) * self.n_dev
+        self.n_pad = -(-max(self.n, 1) // self._pad_unit) * self._pad_unit
+        self.shard_rows = self.n_pad // self.n_dev
+        self._buckets = tuple(sorted({int(b) for b in query_buckets}))
+        self._labels = labels
+        self._shards = [torch.zeros((self.shard_rows, self.dim), dtype=dtype,
+                                    device=d) for d in self.devices]
+        # the valid-row count, as SpeakerBank keeps it (identify masks by
+        # self.n)
+        self._n_valid = torch.tensor(self.n)
+        # each shard normalizes its own rows, in slices
+        step = max(1, (1 << 26) // max(self.dim, 1))
+        for lo in range(0, self.n, step):
+            rows = src[lo:lo + step]
+            self._write_rows(lo, rows)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self._shards[0].dtype
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self._shards)
+
+    def _write_rows(self, lo: int, rows) -> None:
+        """Normalized ``rows`` into the global rows ``lo...``, shard by
+        shard."""
+        m = int(rows.shape[0])
+        for i, shard in enumerate(self._shards):
+            a = max(lo, i * self.shard_rows)
+            b = min(lo + m, (i + 1) * self.shard_rows)
+            if a < b:
+                part = _normalize_rows(_as_rows(rows[a - lo:b - lo],
+                                                shard.device))
+                shard[a - i * self.shard_rows:b - i * self.shard_rows] = \
+                    part.to(shard.dtype)
+
+    def identify(self, queries, k: int = 1):
+        """:meth:`SpeakerBank.identify`, shard by shard: each shard's
+        top ``min(k, R)`` with global row indices, then the top k of
+        those (candidates in shard order, so equal scores still rank by
+        the lower index)."""
+        q = _as_rows(queries, self.device)
+        if q.shape[-1] != self.dim:
+            raise ValueError(f"query dim {q.shape[-1]} != bank {self.dim}")
+        k = min(int(k), self.n)
+        if k == 0:
+            return (np.zeros((q.shape[0], 0), np.float32),
+                    np.zeros((q.shape[0], 0), np.int64))
+        k_local = min(k, self.shard_rows)
+        out_s, out_i = [], []
+        for lo in range(0, q.shape[0], self._buckets[-1]):
+            chunk = q[lo:lo + self._buckets[-1]]
+            cand_s, cand_i = [], []
+            for i, shard in enumerate(self._shards):
+                row0 = i * self.shard_rows
+                qn = _normalize_rows(chunk.to(shard.device))
+                scores = qn.to(shard.dtype) @ shard.T
+                n_valid = min(max(self.n - row0, 0), self.shard_rows)
+                scores[:, n_valid:] = -2.0
+                s, li = topk_lower_index_first(scores, k_local)
+                cand_s.append(s.float().to(self.device))
+                cand_i.append((li + row0).to(self.device))
+            gs, pos = topk_lower_index_first(torch.cat(cand_s, 1), k)
+            out_s.append(gs)
+            out_i.append(torch.cat(cand_i, 1).gather(1, pos))
+        return (torch.cat(out_s).cpu().numpy(),
+                torch.cat(out_i).cpu().numpy())
+
+    def _grow(self, min_rows: int) -> None:
+        """Re-pad to equal shards of at least ``min_rows`` rows in all
+        (a multiple of ``pad_rows_to`` × devices); rows keep their
+        global indices, so some move to the next shard."""
+        new_pad = -(-min_rows // self._pad_unit) * self._pad_unit
+        rows = new_pad // self.n_dev
+        new = [torch.zeros((rows, self.dim), dtype=self.dtype, device=d)
+               for d in self.devices]
+        for i, old in enumerate(self._shards):
+            o_lo = i * self.shard_rows
+            for j, dst in enumerate(new):
+                a = max(o_lo, j * rows)
+                b = min(o_lo + self.shard_rows, (j + 1) * rows, self.n)
+                if a < b:
+                    dst[a - j * rows:b - j * rows] = \
+                        old[a - o_lo:b - o_lo].to(dst.device)
+        self._shards, self.n_pad, self.shard_rows = new, new_pad, rows
+
+    def _row(self, i: int) -> torch.Tensor:
+        return self._shards[i // self.shard_rows][i % self.shard_rows]
+
+    def add(self, embeds, names: Optional[Sequence] = None) -> np.ndarray:
+        """Enroll rows at the end of the bank (re-padding past
+        capacity); returns their indices."""
+        rows = _as_rows(embeds, self.device)
+        if rows.shape[-1] != self.dim:
+            raise ValueError(f"embed dim {rows.shape[-1]} != {self.dim}")
+        m = rows.shape[0]
+        if names is not None and len(names) != m:
+            raise ValueError(f"{m} rows but {len(names)} names")
+        if m == 0:
+            return np.zeros((0,), np.int64)
+        if self.n + m > self.n_pad:
+            self._grow(self.n + m)
+        self._append_labels(names)
+        self._write_rows(self.n, rows)
+        self.n += m
+        self._n_valid.fill_(self.n)
+        return np.arange(self.n - m, self.n, dtype=np.int64)
+
+    def _move_row(self, src: int, dst: int) -> None:
+        row = self._row(dst)
+        row.copy_(self._row(src).to(row.device))
 
 
 def identify_with_bank(bank: SpeakerBank, queries, threshold: float = 0.0):

@@ -23,6 +23,7 @@ from typing import Callable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from speakerverification_tpu_torch.data.loader import EvalDataLoader
 from speakerverification_tpu_torch.evaluation.bank import (
@@ -33,6 +34,10 @@ from speakerverification_tpu_torch.evaluation.bank import (
 from speakerverification_tpu_torch.evaluation.scoring import (
     l2_normalize,
     score_trials,
+)
+from speakerverification_tpu_torch.parallel.multihost import (
+    is_multiprocess,
+    process_allgather,
 )
 
 __all__ = ["sniff_has_label", "parse_trials", "extract_embeddings",
@@ -84,14 +89,32 @@ def parse_trials(listfile: str | Path, with_label: bool = True):
 
 def extract_embeddings(embed_fn: Callable, files: Sequence[str],
                        audio_spec: Mapping, num_eval: int = 10,
-                       batch_size: int = 32,
-                       num_workers: int = 8) -> torch.Tensor:
+                       batch_size: int = 32, num_workers: int = 8,
+                       distributed: bool = False) -> torch.Tensor:
     """Embed unique files in fixed-shape batches → ``[n_files, E, D]``,
-    on the device ``embed_fn`` returns its embeddings on (one process;
-    multi-GPU extraction is not ported yet)."""
+    on the device ``embed_fn`` returns its embeddings on.
+
+    ``distributed=True`` with several processes (every rank calls it):
+    each rank embeds a contiguous slice of the file list, padded with
+    the last file to equal slices, and ``process_allgather`` puts the
+    slices back in file order on every rank (the reference's eval
+    ``DistributedSampler`` and ``all_gather_object``)."""
     if not files:
+        # here, not in the padding below, where it would leave the other
+        # ranks waiting in the gather
         raise ValueError("extract_embeddings: empty file list "
                          "(empty trial list or speaker directory?)")
+    if distributed and is_multiprocess():
+        world, rank = dist.get_world_size(), dist.get_rank()
+        per = -(-len(files) // world)
+        padded = list(files) + [files[-1]] * (per * world - len(files))
+        local = extract_embeddings(embed_fn, padded[rank * per:
+                                                    (rank + 1) * per],
+                                   audio_spec, num_eval, batch_size,
+                                   num_workers)
+        gathered = process_allgather(local)
+        out = torch.from_numpy(gathered.reshape(-1, *gathered.shape[2:]))
+        return out[:len(files)].to(local.device)
     loader = EvalDataLoader(files, audio_spec, num_eval=num_eval,
                             batch_size=batch_size, num_workers=num_workers)
     out = []
@@ -108,13 +131,15 @@ def evaluate_from_list(embed_fn: Callable, listfile: str | Path,
                        scoring_mode: Optional[str] = "cosine",
                        cohorts: Optional[np.ndarray] = None,
                        top: int = 200, normalize: bool = True,
-                       batch_size: int = 32, num_workers: int = 8):
+                       batch_size: int = 32, num_workers: int = 8,
+                       distributed: bool = False):
     """Returns ``(scores, labels, trials)``."""
     labels, refs, coms = parse_trials(listfile, with_label=True)
     setfiles = sorted(set(refs) | set(coms))
     index = {f: i for i, f in enumerate(setfiles)}
     emb = extract_embeddings(embed_fn, setfiles, audio_spec, num_eval,
-                             batch_size, num_workers)
+                             batch_size, num_workers,
+                             distributed=distributed)
     ridx = np.asarray([index[f] for f in refs], np.int64)
     cidx = np.asarray([index[f] for f in coms], np.int64)
 

@@ -19,6 +19,7 @@ the config's seed. ``quant: int8`` extracts through the int8 GEMMs of
 
 from __future__ import annotations
 
+import copy
 import csv
 import functools
 import time
@@ -57,10 +58,17 @@ from speakerverification_tpu_torch.evaluation.reports import (
     fbeta_score,
 )
 from speakerverification_tpu_torch.ops import quant_matmul
+from speakerverification_tpu_torch.parallel.multihost import (
+    is_main,
+    is_multiprocess,
+)
 from speakerverification_tpu_torch.quant import (
     calibrate_act_scales,
     check_calibratable,
     make_int8_embed_fn,
+)
+from speakerverification_tpu_torch.training.train_step import (
+    eval_dp_devices,
 )
 from speakerverification_tpu_torch.weights import (
     cast_copy,
@@ -136,7 +144,8 @@ class EvalEmbed(nn.Module):
 
 
 def make_eval_embed_fn(model: nn.Module, normalize: bool = True,
-                       compute_dtype: Optional[torch.dtype] = None) -> Callable:
+                       compute_dtype: Optional[torch.dtype] = None,
+                       devices=None) -> Callable:
     """Build ``embed(wave [B, T]) -> [B, D]`` fp32 on the model's device.
 
     int16 waves (the serving wire format) are dequantized ×1/32768 on the
@@ -144,22 +153,58 @@ def make_eval_embed_fn(model: nn.Module, normalize: bool = True,
     statistics) of a copy of the model are cast to it; the frontend
     stays fp32 either way. Embeddings are L2-normalized when
     ``normalize`` (the loss head's ``test_normalize``). The function's
-    ``module`` attribute is the :class:`EvalEmbed` it runs."""
+    ``module`` attribute is the :class:`EvalEmbed` it runs.
+
+    ``devices`` (two or more; ``training.train_step.eval_dp_devices``):
+    the batch's rows are split over them in order, each device running a
+    copy of the model (a device named twice runs its copy twice), and
+    the embeddings come back in order on the model's device. Eval-mode
+    embedding is per-row math, so the result is the one-device result;
+    a batch that does not divide is padded by repeating rows (real
+    utterances, not silence) and cut back."""
     if compute_dtype is not None:
         model = cast_copy(model, compute_dtype)
     model.eval()
     device = next(model.parameters()).device
     module = EvalEmbed(model, normalize).eval()
 
-    @torch.inference_mode()
-    def embed(wave) -> torch.Tensor:
-        wave = torch.as_tensor(wave).to(device, non_blocking=True)
+    def run(m: nn.Module, dev, wave) -> torch.Tensor:
+        wave = torch.as_tensor(wave).to(dev, non_blocking=True)
         if wave.dtype == torch.int16:
             wave = wave.float() * (1.0 / 32768.0)
-        return module(wave)
+        return m(wave)
 
-    embed.module = module
-    return embed
+    if devices is None or len(devices) < 2:
+        @torch.inference_mode()
+        def embed(wave) -> torch.Tensor:
+            return run(module, device, wave)
+
+        embed.module = module
+        return embed
+
+    devices = [torch.device(d) for d in devices]
+    replicas = {device: module}
+    for d in devices:
+        if d not in replicas:
+            replicas[d] = copy.deepcopy(module).to(d).eval()
+    n = len(devices)
+
+    @torch.inference_mode()
+    def embed_dp(wave) -> torch.Tensor:
+        wave = torch.as_tensor(wave)
+        B = wave.shape[0]
+        pad = (-B) % n
+        if pad:
+            wave = wave[torch.arange(B + pad) % B]
+        rows = (B + pad) // n
+        outs = [run(replicas[d], d, wave[i * rows:(i + 1) * rows])
+                for i, d in enumerate(devices)]
+        out = torch.cat([o.to(device) for o in outs])
+        return out[:B] if pad else out
+
+    embed_dp.module = module
+    embed_dp.devices = devices
+    return embed_dp
 
 
 class InferenceEngine:
@@ -189,9 +234,20 @@ class InferenceEngine:
         # must not normalize again
         self._normalize = eval_normalize_from_hparams(self.hparams)
         self._compute_dtype = compute_dtype_from_hparams(self.hparams)
+        # eval data parallelism over the local GPUs (eval_dp_devices); an
+        # int8 engine runs on one device, as the JAX engine does
+        devices = None if self.device.type != "cuda" \
+            else eval_dp_devices(self.hparams)
+        if devices and quant == "int8":
+            print("[INFO] --quant int8 runs single-device "
+                  "(eval data parallelism applies to the float path)")
+            devices = None
+        elif devices:
+            print(f"[INFO] eval data parallelism over {len(devices)} local "
+                  "devices")
         self._float_embed = make_eval_embed_fn(
             self.model, normalize=self._normalize,
-            compute_dtype=self._compute_dtype)
+            compute_dtype=self._compute_dtype, devices=devices)
         # int8: static activation scales, calibrated on the first batch
         self.act_scales: Optional[dict] = None
         self._embed = None if quant == "int8" else self._float_embed
@@ -310,11 +366,16 @@ class InferenceEngine:
             return np.load(str(h["cohorts_path"]))
         return None
 
-    def evaluate(self, listfile: Optional[str] = None) -> dict:
+    def evaluate(self, listfile: Optional[str] = None,
+                 distributed: Optional[bool] = None) -> dict:
         """Score ``evaluation_file``: EER, AUC, minDCF and thresholds; writes
         ``evaluation_results.csv``, the false-accept/false-reject pair
         lists and a line of ``Inference_log.txt`` under the run's
-        ``result`` directory."""
+        ``result`` directory. ``distributed`` (default: when several
+        processes run) splits the files over the processes, each of
+        which must call it; rank 0 writes."""
+        if distributed is None:
+            distributed = is_multiprocess()
         h = self.hparams
         listfile = listfile or h["evaluation_file"]
         mode = h.get("scoring_mode", "cosine")
@@ -326,7 +387,8 @@ class InferenceEngine:
             cohorts=cohorts, normalize=False,
             batch_size=int(h.get("eval_batch_size", 32)),
             num_workers=int(h.get("dataloader_options", {})
-                            .get("num_workers", 8)))
+                            .get("num_workers", 8)),
+            distributed=distributed)
         elapsed = time.time() - t0
 
         res = tune_threshold_from_score(scores, labels, [1, 0.1])
@@ -339,6 +401,11 @@ class InferenceEngine:
             c_fa=float(dcf.get("dcf_c_fa", 1)))
 
         result_dir = self.dirs["result"]
+        if not is_main():
+            # several processes: the embeddings were gathered on every
+            # rank, and rank 0 writes the results
+            return {"eer": res["roc"][1], "min_dcf": mindcf,
+                    "threshold": res["roc"][3], "n_trials": len(scores)}
         with open(result_dir / "evaluation_results.csv", "w", newline="") as f:
             w = csv.writer(f)
             w.writerow(["label", "score", "trial"])
@@ -371,7 +438,7 @@ class InferenceEngine:
         threshold = threshold if threshold is not None else \
             float(h.get("test_threshold", 0))
         if threshold == 0:
-            threshold = float(self.evaluate()["threshold"])
+            threshold = float(self.evaluate(distributed=False)["threshold"])
         out = self.dirs["result"] / (Path(listfile).stem + "_results.txt")
         scores, preds, labels = test_from_list(
             self.embed_fn, listfile, h["audio_spec"], threshold,
@@ -428,14 +495,21 @@ class InferenceEngine:
 def inference(hparams: Mapping, eval_: bool = False, test: bool = False,
               prepare: bool = False, predict=None, device=None) -> dict:
     """CLI-facing dispatcher, in the JAX order: prepare, eval, test,
-    predict (``predict``: a list of files, empty for none)."""
+    predict (``predict``: a list of files, empty for none). With several
+    processes every rank takes part in ``eval`` (the files are split
+    over them); rank 0 alone runs the other verbs."""
     engine = InferenceEngine(hparams, device=device)
     out = {}
-    if prepare:
+    main = is_main()
+    if prepare and main:
         engine.prepare()
         out["prepared"] = True
+    if is_multiprocess():
+        torch.distributed.barrier()      # what prepare wrote is there
     if eval_:
         out["eval"] = engine.evaluate()
+    if not main:
+        return out
     if test:
         out["test"] = engine.test()
     if predict:

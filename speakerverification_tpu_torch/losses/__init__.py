@@ -12,8 +12,8 @@ Each head is called as ``head(x, label) -> (loss, prec1)`` and carries
 ``ProxyNCA``, ``MP``, ``MMP`` (and ``*_Balance``), ``MMP_Balance_MTL``;
 the pair heads ``MultiSimilarity``, ``MultiSimilarity_v2``,
 ``MSSoftmax``, ``MSAmSoftmax``, ``CircleLoss``, ``CircleLossV2``; and
-``TripletLoss``. The JAX package's ``ShardedAAmSoftmax`` (the
-class-sharded head of ``model_parallel > 1``) is not ported.
+``TripletLoss``; and ``ShardedAAmSoftmax``, the class-sharded head of
+``model_parallel > 1`` (``losses/sharded.py``).
 """
 
 import inspect
@@ -43,6 +43,7 @@ from speakerverification_tpu_torch.losses.combined import (  # noqa: F401
 import speakerverification_tpu_torch.losses.adaptive  # noqa: F401
 import speakerverification_tpu_torch.losses.proxy  # noqa: F401
 import speakerverification_tpu_torch.losses.similarity  # noqa: F401
+import speakerverification_tpu_torch.losses.sharded  # noqa: F401
 import speakerverification_tpu_torch.losses.triplet  # noqa: F401
 from speakerverification_tpu_torch.registry import LOSSES
 

@@ -272,7 +272,7 @@ _packed = WeakIdKeyDictionary()
 def _constants(cs, fb, rows, nb, hop):
     """``(folded, chunks, fold table)``: the route is chosen here, once
     per basis, by the window's shape."""
-    key = (tuple(rows), nb, hop)
+    key = (tuple(rows), nb, hop, cs.device)
     hit = _packed.get(cs)
     if hit is None or hit[0] is not fb or hit[1] != key:
         folded = symmetric(cs, rows)
@@ -301,6 +301,14 @@ def mel_frontend_plain(padded: torch.Tensor, cs: torch.Tensor,
 
 def _launch(padded: torch.Tensor, cs: torch.Tensor, fb: torch.Tensor,
             hop: int, rows) -> torch.Tensor:
+    """The launch, in the CUDA context of ``padded``'s device (a process
+    that drives several cards may have another one current)."""
+    with torch.cuda.device(padded.device):
+        return _launch_here(padded, cs, fb, hop, rows)
+
+
+def _launch_here(padded: torch.Tensor, cs: torch.Tensor, fb: torch.Tensor,
+                 hop: int, rows) -> torch.Tensor:
     global launches
     from speakerverification_tpu_torch.ops._build import load
     lib = load("mel_frontend", _SIGNATURES)

@@ -196,8 +196,8 @@ def build():
     return lib
 
 
-# per int8 weights tensor (an entry lives as long as it does): its
-# version, storage and device, and the conv kernel's packed tiles
+# per int8 weights tensor (an entry lives as long as it does), per
+# device: its version and storage, and the conv kernel's packed tiles
 _packed = WeakIdKeyDictionary()
 
 
@@ -211,10 +211,14 @@ def invalidate_packed(wq: torch.Tensor) -> None:
 
 
 def _packed_weights(wq):
-    key = (state_version(wq), wq.data_ptr(), wq.device)
-    hit = _packed.get(wq)
+    """The conv kernel's tiles of ``wq``, one copy per device."""
+    per_device = _packed.get(wq)
+    if per_device is None:
+        per_device = _packed[wq] = {}
+    key = (state_version(wq), wq.data_ptr())
+    hit = per_device.get(wq.device)
     if hit is None or hit[0] != key:
-        hit = _packed[wq] = (key, pack_conv_weights(wq))
+        hit = per_device[wq.device] = (key, pack_conv_weights(wq))
     return hit[1]
 
 
@@ -224,6 +228,13 @@ def _sms(device) -> int:
 
 
 def _launch(x, wq, s_w, bias, act_scale, trace=None):
+    """The launch, in the CUDA context of ``x``'s device (a process that
+    drives several cards may have another one current)."""
+    with torch.cuda.device(x.device):
+        return _launch_here(x, wq, s_w, bias, act_scale, trace)
+
+
+def _launch_here(x, wq, s_w, bias, act_scale, trace=None):
     global launches
     _check(x, wq)
     if x.dtype not in (torch.float32, torch.bfloat16):

@@ -218,8 +218,8 @@ def pack_weights(weights: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     raise ValueError(f"cascade kernel takes float32 or bfloat16, got {dtype}")
 
 
-# per weights tensor (an entry lives as long as it does): its version,
-# storage and target, and the packed weights
+# per weights tensor (an entry lives as long as it does), per (dtype,
+# device): its version and storage, and the packed weights
 _packed = WeakIdKeyDictionary()
 
 
@@ -239,10 +239,15 @@ def invalidate_packed(weights: torch.Tensor) -> None:
 
 
 def _packed_weights(weights, dtype, device):
-    key = (state_version(weights), weights.data_ptr(), dtype, device)
-    hit = _packed.get(weights)
+    """The packed copy of ``weights`` for ``dtype`` on ``device``; one
+    copy per device, so replicas on several cards never share one."""
+    per_device = _packed.get(weights)
+    if per_device is None:
+        per_device = _packed[weights] = {}
+    key = (state_version(weights), weights.data_ptr())
+    hit = per_device.get((dtype, device))
     if hit is None or hit[0] != key:
-        hit = _packed[weights] = (
+        hit = per_device[(dtype, device)] = (
             key, pack_weights(weights.to(device), dtype).contiguous())
     return hit[1]
 
@@ -255,6 +260,14 @@ def _schedule(B, T, groups, dilation, device):
 
 
 def _launch(x, weights, conv_bias, bn_scale, bn_shift, dilation):
+    """The launch, in the CUDA context of ``x``'s device (a process that
+    drives several cards may have another one current)."""
+    with torch.cuda.device(x.device):
+        return _launch_here(x, weights, conv_bias, bn_scale, bn_shift,
+                            dilation)
+
+
+def _launch_here(x, weights, conv_bias, bn_scale, bn_shift, dilation):
     global launches
     B, C, T, groups, hidden = _check_kernel(x, weights, dilation)
     if not x.is_contiguous():

@@ -25,7 +25,10 @@
   (``auto``, ``true``, ``false``) puts them in a
   :class:`~speakerverification_tpu_torch.evaluation.bank.SpeakerBank` on
   the engine's device (``auto``: from ``AUTO_DEVICE_BANK_MIN_ROWS``
-  rows); otherwise ``/identify`` scans them on the host. Identifies share
+  rows); otherwise ``/identify`` scans them on the host.
+  ``serving.bank_devices: n > 1`` splits the device bank over the first
+  n GPUs (:class:`~speakerverification_tpu_torch.evaluation.bank.
+  ShardedSpeakerBank`), refused when fewer are visible. Identifies share
   a readers-writer lock, enrollments take it alone, and with
   ``serving.persist_enroll`` (default true) every change is written back
   to the artifacts, each file to a temporary name first.
@@ -48,10 +51,25 @@ import torch
 from speakerverification_tpu_torch.data.audio import AudioSpec, load_wav
 from speakerverification_tpu_torch.evaluation.bank import (
     AUTO_DEVICE_BANK_MIN_ROWS,
+    ShardedSpeakerBank,
     SpeakerBank,
 )
 
-__all__ = ["DynamicBatcher", "serve", "make_serving_app", "warm_up"]
+__all__ = ["DynamicBatcher", "serve", "make_serving_app", "warm_up",
+           "bank_device_list"]
+
+
+def bank_device_list(device: torch.device, n: int) -> list:
+    """The first ``n`` devices of ``device``'s kind visible to this
+    process (the CPU counts as one); ``ValueError`` when fewer are."""
+    visible = ([torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+               if device.type == "cuda" else [device])
+    if n > len(visible):
+        # the bank was sized for n cards: refuse, not shrink
+        raise ValueError(f"serving.bank_devices={n} but only "
+                         f"{len(visible)} device(s) visible")
+    return visible[:n]
 
 
 class _RWLock:
@@ -259,11 +277,9 @@ def make_serving_app(engine, hparams: Mapping,
 
     def _build_device_bank(embeds, classes):
         if bank_devices > 1:
-            # the bank was sized for that many cards: refuse, not shrink
-            raise ValueError(
-                f"serving.bank_devices={bank_devices}: a bank sharded over "
-                "several GPUs (ShardedSpeakerBank) comes with the port's "
-                "multi-GPU slice; this server keeps one bank on one device")
+            return ShardedSpeakerBank(
+                embeds, classes,
+                devices=bank_device_list(engine.device, bank_devices))
         return SpeakerBank(embeds, classes, device=engine.device)
 
     def _load_banks():

@@ -12,7 +12,16 @@ flax layout, counts int32, the learning rate fp32, flags bool; a
 ``LeafTree``'s leaves, already in flax layout, at each parameter's flax
 path, a tuple of them with index keys), beside a JSON sidecar. The JAX
 package's ``load_checkpoint`` restores such a file as its full train
-state, and the port restores the JAX package's.
+state, and the port restores the JAX package's. A state whose head is
+class-sharded (``TrainState.shards``) is written whole: the ranks gather
+its row blocks first, so the file keeps the JAX layout.
+
+``CheckpointManager(backend="sharded")`` keeps every checkpoint as a
+sharded directory instead (``training/checkpoint_sharded.py``: each rank
+writes its own rows), named like the msgpack files without the suffix;
+``load_checkpoint`` reads either. Under ``torch.distributed`` every rank
+calls the manager: rank 0 alone writes msgpack files, moves and deletes,
+and every rank writes its part of a sharded checkpoint.
 """
 
 from __future__ import annotations
@@ -25,9 +34,16 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from speakerverification_tpu_torch import checkpoint as codec
 from speakerverification_tpu_torch.optim import LeafTree, ParamTree
+from speakerverification_tpu_torch.training.checkpoint_sharded import (
+    ckpt_group,
+    is_sharded_checkpoint,
+    restore_sharded,
+    save_sharded,
+)
 from speakerverification_tpu_torch.training.state import TrainState
 from speakerverification_tpu_torch.weights import (
     flax_path,
@@ -75,12 +91,23 @@ def _opt_to_jax(node: Any, model_state: dict) -> Any:
 
 def state_to_jax(state: TrainState) -> dict:
     """The state as the JAX ``TrainState`` serializes: numpy trees in
-    flax layout."""
+    flax layout. The row blocks of a class-sharded head are gathered
+    first (a collective over its group: every rank calls it)."""
     sd = state.model.state_dict()
+    opt_state = state.opt_state
+    if state.shards:
+        from speakerverification_tpu_torch.parallel.tp import (
+            full_leaves,
+            map_leaves,
+        )
+        full = full_leaves(state)
+        sd = {**sd, **{p[len("params/"):]: t for p, t in full.items()
+                       if p.startswith("params/")}}
+        opt_state = map_leaves(opt_state, lambda p, t: full.get(p, t))
     params, stats = params_to_jax(sd)
     return {"step": np.asarray(state.step, np.int32), "params": params,
             "batch_stats": stats,
-            "opt_state": _opt_to_jax(state.opt_state, sd)}
+            "opt_state": _opt_to_jax(opt_state, sd)}
 
 
 def _mismatch(path: str, what: str) -> ValueError:
@@ -165,7 +192,10 @@ def load_checkpoint(path: str | Path, state: TrainState) -> TrainState:
     """Restore a whole train state (weights, statistics, optimizer state,
     step) into ``state``. Raises ``ValueError`` when the checkpoint's
     optimizer state or weights do not match ``state``'s (the trainer then
-    restores the weights only)."""
+    restores the weights only). A sharded directory is read into
+    ``state``'s own layout (``checkpoint_sharded.restore_sharded``)."""
+    if is_sharded_checkpoint(path):
+        return restore_sharded(path, state)
     raw = codec.load_checkpoint(path)
     for key in ("params", "batch_stats", "opt_state"):
         if key not in raw:
@@ -207,7 +237,14 @@ class CheckpointManager:
 
     def __init__(self, run_dir: str | Path, top_k: int = 3,
                  save_per_epoch: bool = False,
-                 time_interval_min: float = -1):
+                 time_interval_min: float = -1, backend: str = "msgpack"):
+        if backend not in ("msgpack", "sharded"):
+            raise ValueError(f"unknown checkpoint backend {backend!r}")
+        self.backend = backend
+        # sharded checkpoints are directories named like the msgpack
+        # files minus the suffix; the retention below is path-based
+        self.SUFFIX = ".msgpack" if backend == "msgpack" else ""
+        self.writer = not dist.is_initialized() or dist.get_rank() == 0
         self.run_dir = Path(run_dir)
         self.run_dir.mkdir(parents=True, exist_ok=True)
         self.top_k = top_k
@@ -239,9 +276,13 @@ class CheckpointManager:
             return None
         return max(cands, key=lambda p: p.stat().st_mtime)
 
-    @staticmethod
-    def _save(path: Path, state: TrainState, meta: dict) -> None:
-        codec.save_checkpoint(path, state_to_jax(state), meta)
+    def _save(self, path: Path, state: TrainState, meta: dict) -> None:
+        if self.backend == "sharded":
+            save_sharded(path, state, meta)     # every rank writes its part
+        elif self.writer:
+            codec.save_checkpoint(path, state_to_jax(state), meta)
+        elif state.shards:
+            state_to_jax(state)     # the gather of the head's row blocks
 
     @staticmethod
     def _drop(path: Path) -> None:
@@ -249,6 +290,29 @@ class CheckpointManager:
             shutil.rmtree(path)
         else:
             path.unlink(missing_ok=True)
+
+    @staticmethod
+    def _move(src: Path, dst: Path) -> None:
+        """``src.replace(dst)``, also for directories."""
+        if dst.is_dir():
+            shutil.rmtree(dst)
+        src.replace(dst)
+
+    def _glob(self, pattern: str) -> list[Path]:
+        hits = sorted(self.run_dir.glob(pattern + self.SUFFIX))
+        if self.backend == "sharded":
+            hits = [h for h in hits if h.is_dir()]   # not the sidecars
+        return hits
+
+    @staticmethod
+    def _agree(flag: bool) -> bool:
+        """Rank 0's ``flag`` on every rank (a time-based save is a
+        collective: every rank must take it or none)."""
+        if not (dist.is_initialized() and dist.get_world_size() > 1):
+            return flag
+        t = torch.tensor([int(flag)])
+        dist.broadcast(t, src=0, group=ckpt_group())
+        return bool(t.item())
 
     def save_epoch(self, state: TrainState, epoch: int, loss: float,
                    lr: float, extra_meta: Optional[dict] = None) -> dict:
@@ -261,8 +325,8 @@ class CheckpointManager:
             # rotate top-k: top1 -> top2 -> ... -> topk (dropped)
             for i in range(self.top_k, 1, -1):
                 src = self._p(f"best_state_top{i - 1}")
-                if src.exists():
-                    src.replace(self._p(f"best_state_top{i}"))
+                if self.writer and src.exists():
+                    self._move(src, self._p(f"best_state_top{i}"))
                     js = Path(str(src) + ".json")
                     if js.exists():
                         js.replace(Path(str(self._p(f"best_state_top{i}"))
@@ -276,22 +340,24 @@ class CheckpointManager:
             # a last_state here is a stale preemption snapshot
             for stale in (self.run_dir / "last_state.msgpack",
                           self.run_dir / "last_state"):
-                if stale.exists():
+                if self.writer and stale.exists():
                     self._drop(stale)
                     Path(str(stale) + ".json").unlink(missing_ok=True)
         else:
             self._save(self._p("last_state"), state, meta)
 
-        if (self.time_interval_min > 0 and time.time() - self._last_time_save
-                > self.time_interval_min * 60):
+        if self._agree(self.time_interval_min > 0
+                       and time.time() - self._last_time_save
+                       > self.time_interval_min * 60):
             self._save(self._p(time.strftime("ckpt_%Y%m%d_%H_%M")), state,
                        meta)
             self._last_time_save = time.time()
-            for old in sorted(self.run_dir.glob("ckpt_*" + self.SUFFIX))[:-3]:
+            for old in self._glob("ckpt_*")[:-3] if self.writer else ():
                 self._drop(old)
                 Path(str(old) + ".json").unlink(missing_ok=True)
 
-        self._log_path.write_text(json.dumps(meta))
+        if self.writer:
+            self._log_path.write_text(json.dumps(meta))
         return saved
 
     def save_interrupt(self, state: TrainState, epoch_unfinished: int,
@@ -304,7 +370,8 @@ class CheckpointManager:
         if best_loss == best_loss and best_loss != float("inf"):
             meta["loss"] = float(best_loss)
         self._save(self._p("last_state"), state, meta)
-        self._log_path.write_text(json.dumps(meta))
+        if self.writer:
+            self._log_path.write_text(json.dumps(meta))
 
     def latest(self) -> Optional[Path]:
         """Resume priority: last_state > newest per-epoch > best."""

@@ -5,7 +5,10 @@ statistics and optimizer state.
 port's names (the trainable parameters; the BatchNorm running means and
 variances), so a step that updates them in place updates the model.
 ``training/checkpoint.py`` writes the state in the JAX ``TrainState``'s
-layout.
+layout. ``shards`` names the leaves of which this rank holds a row
+block (the class-sharded head and its optimizer moments,
+``parallel.tp.shard_state_tp``): leaf path → ``(lo, hi, rows, group)``,
+rows ``[lo, hi)`` of ``rows``, the others on the ranks of ``group``.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ class TrainState:
     batch_stats: dict
     opt_state: Any
     model: nn.Module
+    shards: dict = dataclasses.field(default_factory=dict)
 
 
 def model_state(model: nn.Module) -> tuple[dict, dict]:

@@ -29,8 +29,19 @@ another: each starts from the step's incoming batch statistics, the
 gradients, losses and precisions are averaged over the k, and so are
 the k microbatches' new statistics; one optimizer update follows.
 
+With ``data_group`` (a ``torch.distributed`` process group: one process
+per GPU, ``parallel/dp.py``) the gradients, the loss, the precision and
+the BatchNorm running statistics are averaged over the group's ranks
+before the update, as the JAX step ``pmean``s them over its data axis:
+every rank then applies the same update, and each rank's BatchNorm
+(which normalized its own shard) leaves the mean of the shards'
+statistics. ``grad_scale`` multiplies the gradients first (the
+class-sharded head's ``1 / n_model``, ``parallel/tp.py``).
+
 On CUDA the step runs with ``torch.backends.cudnn.benchmark`` on
 (:func:`timed_conv_plans`), as XLA autotunes the JAX step's convolutions.
+:func:`eval_dp_devices` is the policy of row-split eval extraction
+(``inference.make_eval_embed_fn(devices=...)``).
 """
 
 from __future__ import annotations
@@ -45,9 +56,22 @@ from speakerverification_tpu_torch.optim import (
     apply_updates,
     set_learning_rate,
 )
+from speakerverification_tpu_torch.parallel.collectives import (
+    mean_over_group_,
+)
 from speakerverification_tpu_torch.training.state import TrainState
 
-__all__ = ["make_train_step", "timed_conv_plans"]
+__all__ = ["make_train_step", "timed_conv_plans", "eval_dp_devices"]
+
+
+def eval_dp_devices(hparams) -> Optional[list]:
+    """Every local GPU when more than one is visible and
+    ``eval_data_parallel`` is not off, else None: the one policy of the
+    trainer's validation and the inference engine."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n > 1 and bool(hparams.get("eval_data_parallel", True)):
+        return [torch.device("cuda", i) for i in range(n)]
+    return None
 
 
 @contextlib.contextmanager
@@ -72,7 +96,8 @@ def timed_conv_plans(device: torch.device) -> Iterator[None]:
 
 def make_train_step(model, tx, compute_dtype: Optional[torch.dtype] = None,
                     accum_steps: int = 1,
-                    augment_fn: Optional[Callable] = None) -> Callable:
+                    augment_fn: Optional[Callable] = None,
+                    data_group=None, grad_scale: float = 1.0) -> Callable:
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
@@ -132,6 +157,15 @@ def make_train_step(model, tx, compute_dtype: Optional[torch.dtype] = None,
             with torch.no_grad():
                 torch._foreach_copy_(stats, torch._foreach_mul(s_acc, inv))
             loss, prec1 = loss * inv, prec1 * inv
+
+        if grad_scale != 1.0:
+            grads = {key: g * grad_scale for key, g in grads.items()}
+        if data_group is not None:
+            metrics = torch.stack([torch.as_tensor(loss).float(),
+                                   torch.as_tensor(prec1).float()])
+            mean_over_group_([*grads.values(), metrics,
+                              *state.batch_stats.values()], data_group)
+            loss, prec1 = metrics[0], metrics[1]
 
         opt_state = set_learning_rate(state.opt_state, lr)
         params = {k: p.detach() for k, p in state.params.items()}

@@ -1,4 +1,4 @@
-"""Training orchestration on one device (port of ``training/trainer.py``).
+"""Training orchestration (port of ``training/trainer.py``).
 
 Epochs of train steps (``train_step.make_train_step``) over the
 speaker-balanced loader, the learning rate from the schedule per epoch
@@ -26,10 +26,23 @@ The model runs on CUDA unless the caller asks for the CPU. ``profile:
 true`` with a ``profile_dir`` runs the first epoch under
 ``torch.profiler`` (the host, and the card when training on one) and
 writes it as chrome-trace JSON to ``profile_dir/trace.json``, where the
-JAX trainer writes a TensorBoard trace. Not ported, and refused by name:
-``distributed``/``data_parallel``, ``model_parallel > 1`` and
-``sharded_checkpoints``. The loader reads packed shards when
-``dataloader_options.shards`` names a pack (``cli.dataprep --pack``).
+JAX trainer writes a TensorBoard trace. The loader reads packed shards
+when ``dataloader_options.shards`` names a pack (``cli.dataprep
+--pack``).
+
+Several GPUs: with ``distributed`` (or its alias ``data_parallel``) and a
+process group configured (``parallel.maybe_initialize_distributed``:
+one process per GPU), each process trains on its data rank's shard of
+the sampler (``num_replicas``/``rank``; ``batch_size`` is per process,
+as the reference's per-GPU DDP batch) with the data-parallel step
+(``parallel/dp.py``), or with ``model_parallel: m`` the data × model
+step with the class-sharded head (``parallel/tp.py``; the world must be
+a multiple of m). One process trains as on one device.
+``sharded_checkpoints`` keeps checkpoints as sharded directories
+(``training/checkpoint_sharded.py``). Rank 0 alone logs, validates and
+writes msgpack checkpoints; every rank takes part in a checkpoint of a
+sharded head (its rows are gathered) and writes its part of a sharded
+one. A preemption signal stops every rank at the end of the epoch.
 """
 
 from __future__ import annotations
@@ -42,6 +55,7 @@ from typing import Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from speakerverification_tpu_torch.builder import (
     compute_dtype_from_hparams,
@@ -68,24 +82,26 @@ from speakerverification_tpu_torch.ops.device_augment import (
 )
 from speakerverification_tpu_torch.ops.timeaugment import time_augment
 from speakerverification_tpu_torch.optim import EarlyStopping
+from speakerverification_tpu_torch.parallel import (
+    make_dp_tp_train_step,
+    make_dp_train_step,
+    make_mesh,
+    maybe_initialize_distributed,
+    replicate_state,
+    shard_state_tp,
+)
 from speakerverification_tpu_torch.training.checkpoint import (
     CheckpointManager,
     load_checkpoint,
     load_params_only,
 )
 from speakerverification_tpu_torch.training.state import create_train_state
-from speakerverification_tpu_torch.training.train_step import make_train_step
+from speakerverification_tpu_torch.training.train_step import (
+    eval_dp_devices,
+    make_train_step,
+)
 
 __all__ = ["Trainer", "device_augmentation", "run_dirs"]
-
-# keys of the JAX trainer that this one does not take, each with what to
-# do instead
-_REFUSED = {
-    "distributed": "multi-GPU training is not ported yet: train on one GPU",
-    "data_parallel": "multi-GPU training is not ported yet: train on one GPU",
-    "sharded_checkpoints": "orbax sharded checkpoints are not ported: the "
-                           "port writes msgpack checkpoints",
-}
 
 
 def _bank_sizes(hparams: Mapping) -> tuple[int, int]:
@@ -137,17 +153,42 @@ def device_augmentation(hparams: Mapping, loader, device):
 class Trainer:
     def __init__(self, hparams: Mapping, device=None):
         self.hparams = dict(hparams)
-        for key, why in _REFUSED.items():
-            if self.hparams.get(key):
-                raise NotImplementedError(f"{key}: {why}")
-        if int(self.hparams.get("model_parallel", 1) or 1) > 1:
-            raise NotImplementedError(
-                "model_parallel > 1 (the class-sharded head) is not ported "
-                "yet: train on one GPU")
+        if self.hparams.get("data_parallel"):
+            self.hparams["distributed"] = True
+        self.model_parallel = int(self.hparams.get("model_parallel", 1) or 1)
+        if self.model_parallel > 1 and not self.hparams.get("distributed"):
+            raise ValueError(f"model_parallel={self.model_parallel} "
+                             "requires --distributed")
+        self.multiprocess = False
+        if self.hparams.get("distributed"):
+            if device is not None:
+                self.hparams.setdefault("device", str(device))
+            self.multiprocess = maybe_initialize_distributed(self.hparams)
+        world = dist.get_world_size() if self.multiprocess else 1
+        if self.model_parallel > 1 and (world < self.model_parallel
+                                        or world % self.model_parallel):
+            raise ValueError(
+                f"model_parallel={self.model_parallel} requires a world of "
+                f"a multiple of {self.model_parallel} processes (have "
+                f"{world})")
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.is_main = not self.multiprocess or dist.get_rank() == 0
         self.dirs = run_dirs(self.hparams)
 
-        self.loader = train_data_loader(self.hparams)
+        # several processes: a 1-D data mesh, or data x model; the
+        # sampler shards by data rank (the ranks of a model group train
+        # on the same batch)
+        self.mesh = None
+        n_data, data_rank = 1, 0
+        if self.multiprocess:
+            mp_ = self.model_parallel
+            self.mesh = (make_mesh(("data", "model"), (world // mp_, mp_))
+                         if mp_ > 1 else make_mesh(("data",)))
+            n_data = world // mp_
+            data_rank = self.mesh.get_local_rank("data")
+        self.loader = train_data_loader(self.hparams, n_data, data_rank)
         if self.loader.manifest.num_classes != int(
                 self.hparams.get("nClasses", 0)):
             print(f"[WARN] nClasses={self.hparams.get('nClasses')} in config "
@@ -155,8 +196,8 @@ class Trainer:
                   f"manifest; using the manifest count")
             self.hparams["nClasses"] = self.loader.manifest.num_classes
 
-        self.model = encoder_from_hparams(self.hparams, with_loss=True).to(
-            self.device)
+        self.model = encoder_from_hparams(self.hparams, with_loss=True,
+                                          num_devices=world).to(self.device)
         self.tx = optimizer_from_hparams(self.hparams)
         self.steps_per_epoch = max(len(self.loader), 1)
         self.schedule, self.lr_unit = scheduler_from_hparams(
@@ -165,6 +206,15 @@ class Trainer:
         self.accum_steps = int(self.hparams.get("accumulate_steps", 1))
         if self.accum_steps > 1:
             if int(self.hparams.get("batch_size", 0)) % self.accum_steps:
+                if self.mesh is not None:
+                    # one data shard per process: a shard's rows are
+                    # batch_size
+                    raise ValueError(
+                        f"accumulate_steps={self.accum_steps} must divide "
+                        f"each data shard's rows: batch_size "
+                        f"{self.hparams.get('batch_size')} over 1 shards "
+                        f"gives {self.hparams.get('batch_size')} "
+                        "rows/shard")
                 raise ValueError(
                     f"accumulate_steps={self.accum_steps} must divide "
                     f"batch_size {self.hparams.get('batch_size')}")
@@ -173,40 +223,54 @@ class Trainer:
         (self._augment_fn, self._aug_banks,
          self._aug_source) = device_augmentation(self.hparams, self.loader,
                                                  self.device)
-        self.step_fn = make_train_step(self.model, self.tx,
-                                       compute_dtype=self._compute_dtype,
-                                       accum_steps=self.accum_steps,
-                                       augment_fn=self._augment_fn)
+        if self.mesh is None:
+            self.step_fn = make_train_step(self.model, self.tx,
+                                           compute_dtype=self._compute_dtype,
+                                           accum_steps=self.accum_steps,
+                                           augment_fn=self._augment_fn)
+        elif self.model_parallel > 1:
+            self.step_fn = None    # built in fit(): it names the state's shards
+        else:
+            self.step_fn = make_dp_train_step(
+                self.model, self.tx, self.mesh,
+                compute_dtype=self._compute_dtype, augment_fn=self._augment_fn,
+                accum_steps=self.accum_steps)
+        if self.mesh is not None and self.is_main:
+            print(f"[INFO] data-parallel over {n_data} processes"
+                  + (f" x {self.model_parallel} model shards"
+                     if self.model_parallel > 1 else ""))
         self.rng = torch.Generator(device=self.device)
 
         self.ckpt = CheckpointManager(
             self.dirs["model"], top_k=3,
             save_per_epoch=not self.hparams.get("save_model_last", True),
             time_interval_min=float(self.hparams.get("ckpt_interval_minutes",
-                                                     -1)))
+                                                     -1)),
+            backend=("sharded" if self.hparams.get("sharded_checkpoints")
+                     else "msgpack"))
         self.early_stopping: Optional[EarlyStopping] = None
         if self.hparams.get("early_stopping"):
             self.early_stopping = EarlyStopping(
                 patience=int(self.hparams.get("es_patience", 15)))
 
-        with open(self.dirs["result"] / "settings.txt", "a") as f:
-            f.write(f"\n[{time.strftime('%Y-%m-%d %H:%M:%S')}]\n")
-            for k in sorted(self.hparams):
-                f.write(f"{k}: {self.hparams[k]!r}\n")
-
         self._writer = None
-        try:
-            from tensorboardX import SummaryWriter
-            runs = self.dirs["result"] / "runs"
-            runs.mkdir(exist_ok=True)
-            self._writer = SummaryWriter(log_dir=str(runs))
-        except ImportError:
-            pass
+        if self.is_main:
+            with open(self.dirs["result"] / "settings.txt", "a") as f:
+                f.write(f"\n[{time.strftime('%Y-%m-%d %H:%M:%S')}]\n")
+                for k in sorted(self.hparams):
+                    f.write(f"{k}: {self.hparams[k]!r}\n")
+            try:
+                from tensorboardX import SummaryWriter
+                runs = self.dirs["result"] / "runs"
+                runs.mkdir(exist_ok=True)
+                self._writer = SummaryWriter(log_dir=str(runs))
+            except ImportError:
+                pass
 
         # profile: the first epoch's torch.profiler trace, written as
-        # chrome-trace JSON to profile_dir/trace.json
+        # chrome-trace JSON to profile_dir/trace.json (by rank 0)
         self._profile_dir = (Path(str(self.hparams["profile_dir"]))
-                             if self.hparams.get("profile")
+                             if self.hparams.get("profile") and self.is_main
                              and self.hparams.get("profile_dir") else None)
         self.state = None
         self._preempt = False
@@ -227,6 +291,7 @@ class Trainer:
         elif self.ckpt.latest() is not None:
             resume = self.ckpt.latest()
         if resume is None:
+            self._place_state()
             return
         try:
             self.state = load_checkpoint(resume, self.state)
@@ -240,6 +305,22 @@ class Trainer:
         self.min_loss = min(float(meta.get("loss", float("inf"))),
                             self.ckpt._best_loss)
         print(f"[INFO] resumed from {resume} at epoch {self.init_epoch}")
+        self._place_state()
+
+    def _place_state(self) -> None:
+        """Several processes: the state made equal on every rank (rank
+        0's), or the head's rows cut for this rank's model shard and the
+        data x model step built on it."""
+        if self.mesh is None:
+            return
+        if self.model_parallel > 1:
+            self.state = shard_state_tp(self.state, self.mesh)
+            self.step_fn = make_dp_tp_train_step(
+                self.model, self.tx, self.mesh, self.state,
+                compute_dtype=self._compute_dtype,
+                augment_fn=self._augment_fn, accum_steps=self.accum_steps)
+        else:
+            replicate_state(self.state, self.mesh)
 
     def _lr(self, epoch: int, it: int, global_it: int) -> float:
         if self.lr_unit == "iteration":
@@ -267,7 +348,10 @@ class Trainer:
         with self._profiler() if profiling else contextlib.nullcontext() \
                 as prof:
             for it, batch in enumerate(self.loader):
-                if self._preempt:
+                if self._preempt and not self.multiprocess:
+                    # several processes run the epoch out: the signal may
+                    # reach them at different steps (fit() agrees at the
+                    # epoch's end)
                     break
                 lr = self._lr(epoch, it,
                               (epoch - 1) * self.steps_per_epoch + it)
@@ -287,9 +371,10 @@ class Trainer:
             self._profile_dir.mkdir(parents=True, exist_ok=True)
             prof.export_chrome_trace(str(self._profile_dir / "trace.json"))
             print(f"[INFO] profiler trace written to {self._profile_dir}")
-        print(f"[E{epoch:03d}] loss {loss:.4f} acc {acc:5.2f}% "
-              f"lr {self._lr(epoch, 0, (epoch - 1) * self.steps_per_epoch):.2e} "
-              f"({n_utts / max(dt, 1e-9):.1f} utt/s, {dt:.3f} s)")
+        if self.is_main:
+            print(f"[E{epoch:03d}] loss {loss:.4f} acc {acc:5.2f}% lr "
+                  f"{self._lr(epoch, 0, (epoch - 1) * self.steps_per_epoch):.2e}"
+                  f" ({n_utts / max(dt, 1e-9):.1f} utt/s, {dt:.3f} s)")
         return loss, acc
 
     def _profiler(self):
@@ -331,8 +416,15 @@ class Trainer:
         trial list, or a dev manifest made into one), scored as
         ``scoring_mode`` says (cosine where a cohort bank is missing)."""
         normalize = bool(getattr(self.model.loss, "test_normalize", True))
+        # one process with several GPUs splits the extraction's rows over
+        # them (the inference engine's policy); under a mesh the model
+        # stays on its own device
+        devices = (eval_dp_devices(self.hparams)
+                   if self.mesh is None and self.device.type == "cuda"
+                   else None)
         embed = make_eval_embed_fn(self.model, normalize=normalize,
-                                   compute_dtype=self._compute_dtype)
+                                   compute_dtype=self._compute_dtype,
+                                   devices=devices)
         va = str(self.hparams["valid_annotation"])
         listfile = self._validation_trials() if va.endswith(".csv") else va
         mode = str(self.hparams.get("scoring_mode", "cosine"))
@@ -387,6 +479,11 @@ class Trainer:
         self._init_state()
         for epoch in range(self.init_epoch, n_epochs + 1):
             loss, acc = self.train_epoch(epoch)
+            if self.multiprocess:
+                # stop together when any rank caught the signal
+                flag = torch.tensor([int(self._preempt)], device=self.device)
+                dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+                self._preempt = bool(flag.item())
             if self._preempt:
                 # a partial epoch: resume runs it again; best/top-k and
                 # scores stay
@@ -394,8 +491,9 @@ class Trainer:
                     self.state, epoch,
                     lr=self._lr(epoch, 0, (epoch - 1) * self.steps_per_epoch),
                     best_loss=self.min_loss)
-                print(f"[INFO] preemption checkpoint written (epoch {epoch} "
-                      "unfinished) — exiting")
+                if self.is_main:
+                    print(f"[INFO] preemption checkpoint written (epoch "
+                          f"{epoch} unfinished) — exiting")
                 break
             lr_now = self._lr(epoch, 0, epoch * self.steps_per_epoch)
             if self.lr_unit == "plateau":
@@ -407,12 +505,15 @@ class Trainer:
             line = (f"epoch {epoch}, LR {lr_now:.8f}, TEER/TAcc {acc:2.2f}, "
                     f"TLOSS {loss:f}")
             if test_interval > 0 and epoch % test_interval == 0 and \
-                    self.hparams.get("valid_annotation"):
+                    self.hparams.get("valid_annotation") and self.is_main:
                 veer = self.validate()
                 self.min_eer = min(self.min_eer, veer)
                 line += f", VEER {veer:2.4f}, MINEER {self.min_eer:2.4f}"
-            with open(score_path, "a") as f:
-                f.write(line + "\n")
+            if self.is_main:
+                with open(score_path, "a") as f:
+                    f.write(line + "\n")
+            # every rank: a sharded head's rows are gathered, a sharded
+            # checkpoint written by all
             self.ckpt.save_epoch(self.state, epoch, loss, lr_now)
             if self._writer is not None:
                 self._writer.add_scalar("Loss/train", loss, epoch)
@@ -423,7 +524,8 @@ class Trainer:
                 if improved:
                     self.early_stopping.counter = 0
                 if self.early_stopping(loss):
-                    print("[INFO] early stopping")
+                    if self.is_main:
+                        print("[INFO] early stopping")
                     break
         if self._writer is not None:
             self._writer.close()

@@ -479,8 +479,9 @@ def test_rwlock_readers_share_writers_exclude():
 
 def test_bank_routes_errors_and_the_multi_gpu_refusal(tmp_path):
     """No artifacts: 400 naming them; k outside 1..100: 400;
-    ``bank_devices > 1``: 400 naming the multi-GPU slice; growth past
-    ``AUTO_DEVICE_BANK_MIN_ROWS`` promotes an ``auto`` bank."""
+    ``bank_devices`` above the devices visible (the CPU is one): 400 with
+    JAX's message; growth past ``AUTO_DEVICE_BANK_MIN_ROWS`` promotes an
+    ``auto`` bank."""
     pcm = np.random.default_rng(15).normal(size=800).astype(np.float32)
     httpd, batcher, port = _spin(_fake_app(tmp_path))
     try:
@@ -497,7 +498,8 @@ def test_bank_routes_errors_and_the_multi_gpu_refusal(tmp_path):
                                            bank_devices=2))
     try:
         status, out = _post(port, "/identify", {"pcm": pcm.tolist()})
-        assert status == 400 and "multi-GPU" in out["error"]
+        assert status == 400 and out["error"] == (
+            "serving.bank_devices=2 but only 1 device(s) visible")
     finally:
         _stop(httpd, batcher)
     n = tbank.AUTO_DEVICE_BANK_MIN_ROWS - 1

@@ -210,10 +210,12 @@ def test_cli_eval_writes_one_row_per_trial(ws, tmp_path, capsys):
     wavs = sorted(str(p) for p in (root / "data").glob("spk*/u0.wav"))
     assert cli_main(["--do_infer", "--predict", *wavs, *args, *w]) == 0
     assert capsys.readouterr().out.count("[RESULT] predict: spk") == N_SPK
-    # --do_train runs now; its multi-device flags are not ported and exit
-    # 2 by name; --do_export writes the program, weights and config
-    assert cli_main(["--do_train", "--distributed", *args]) == 2
-    assert "not ported" in capsys.readouterr().err
+    # --do_train runs now; a process group backend the port does not
+    # have exits 2 by name; --do_export writes the program, weights and
+    # config
+    assert cli_main(["--do_train", "--distributed", "--distributed_backend",
+                     "mpi", *args]) == 2
+    assert "'mpi' is not supported" in capsys.readouterr().err
     assert cli_main(["--do_export", *args, *w]) == 0
     assert "[INFO] exported to" in capsys.readouterr().out
     assert {p.name for p in (run / "model" / "export").iterdir()} == {

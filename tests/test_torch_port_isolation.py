@@ -57,7 +57,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                      "optim.second_order", "ops.signal",
                      "ops.features_extra", "ops.filteraugment", "export",
                      "utils.sysinfo", "utils.summary", "utils.plotting",
-                     "evaluation.benchmark"):
+                     "evaluation.benchmark", "parallel", "parallel.mesh",
+                     "parallel.multihost", "parallel.dp", "parallel.tp",
+                     "parallel.collectives", "losses.sharded",
+                     "training.checkpoint_sharded"):
         assert f"speakerverification_tpu_torch.{expected}" in res["modules"]
     loaded = res["loaded"]
     # the GPU host has neither msgpack, ml_dtypes, PyYAML nor matplotlib:

@@ -223,6 +223,29 @@ def test_cascade_kernel_matches_plain(cuda, hidden, dilation, dtype):
         assert _bf16_close(got, ref)
 
 
+@pytest.mark.cuda
+def test_kernels_launch_on_their_tensors_device_when_another_is_current(
+        cuda):
+    """K1 and K2 on tensors of ``cuda:1`` while ``cuda:0`` is current: the
+    wrappers enter the tensors' device, so the kernels run there (a
+    launch in the current context would fail or read another card's
+    memory) and agree with their plain versions."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev1 = torch.device("cuda", 1)
+    cfg, padded, cs, fb = _mel_inputs("8k", 5, 8000, 80, dev1)
+    x, w, cb, s, sh = _cascade_inputs(64, 201, torch.float32, dev1)
+    with torch.cuda.device(0):
+        mel = mf.mel_frontend(padded, cs, fb, cfg.hop_length,
+                              window_rows(cfg))
+        out = rc.res2net_cascade(x, w, cb, s, sh, dilation=2)
+    torch.cuda.synchronize(dev1)
+    assert mel.device == dev1 and out.device == dev1
+    assert _rel_err(mel, mf.mel_frontend_plain(
+        padded, cs, fb, cfg.hop_length, (0, cfg.n_fft))) <= 1e-5
+    assert _rel_err(out, rc.res2net_cascade_plain(x, w, cb, s, sh, 2)) <= 1e-5
+
+
 # (batch rows, crop) at the edges of the kernel's time tiles: the
 # shortest crop (2d + 1), one window of MAX_COLS rows and one row either
 # side of it (one tile, then two), path B's serving batch, a long crop,

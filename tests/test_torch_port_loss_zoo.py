@@ -378,10 +378,9 @@ def test_triplet_head_mines_a_fixed_draw(kw):
 
 
 def test_registries_match_jax():
-    """Every JAX loss head but the class-sharded one, and every JAX
-    optimizer, is registered in the port."""
-    assert set(LOSSES.names()) == set(J_LOSSES.names()) - {
-        "ShardedAAmSoftmax"}
+    """Every JAX loss head (the class-sharded one since the multi-GPU
+    slice), and every JAX optimizer, is registered in the port."""
+    assert set(LOSSES.names()) == set(J_LOSSES.names())
     assert set(OPTIMIZERS.names()) == set(J_OPTIMIZERS.names())
 
 

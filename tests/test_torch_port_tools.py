@@ -44,8 +44,9 @@ from test_torch_port_helpers import randomized_variables
 
 ROOT = Path(__file__).resolve().parents[1]
 SR = 8000
-# the JAX names the port refuses by name (ROADMAP queue A, item 6)
-REFUSED = {"ShardedAAmSoftmax"}
+# the JAX names the port refuses by name (none since the multi-GPU slice
+# registered ShardedAAmSoftmax)
+REFUSED = set()
 ECAPA_SMALL = {"name": "ECAPA_TDNN", "feature_type": "melspectrogram",
                "nOut": 16, "channels": [16, 16, 16, 16, 48],
                "kernel_sizes": [5, 3, 3, 3, 1], "dilations": [1, 2, 3, 4, 1],

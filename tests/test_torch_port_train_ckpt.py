@@ -242,28 +242,69 @@ def test_sigterm_checkpoints_the_unfinished_epoch(tmp_path):
     ("distributed", True), ("data_parallel", True), ("model_parallel", 2),
     ("profile", True), ("sharded_checkpoints", True)])
 def test_trainer_refuses_what_is_not_ported(tmp_path, key, value):
+    """The JAX trainer's keys the port once refused, each taken now (the
+    multi-GPU slice; ``tests/test_torch_port_parallel*.py`` run them
+    across processes): ``distributed`` and its alias ``data_parallel``
+    train in this one process when no process group is configured, as
+    JAX trains on one device; ``model_parallel > 1`` needs
+    ``distributed`` and a world of a multiple of it, with JAX's errors;
+    ``sharded_checkpoints`` keeps checkpoints as sharded directories."""
+    _corpus(tmp_path)
+    generate_metadata(tmp_path / "data", tmp_path / "meta", seed=3)
     if key == "profile":
         # ported since the thirteenth slice: the key is taken, and names
         # the first epoch's trace (tests/test_torch_port_tools.py runs it)
-        _corpus(tmp_path)
-        generate_metadata(tmp_path / "data", tmp_path / "meta", seed=3)
         trainer = Trainer(_hparams(tmp_path, profile=value,
                                    profile_dir=str(tmp_path / "prof")),
                           device="cpu")
         assert trainer._profile_dir == tmp_path / "prof"
         return
-    with pytest.raises(NotImplementedError, match=key):
-        Trainer(_hparams(tmp_path, **{key: value}), device="cpu")
+    if key == "model_parallel":
+        with pytest.raises(ValueError, match="requires --distributed"):
+            Trainer(_hparams(tmp_path, model_parallel=value), device="cpu")
+        with pytest.raises(ValueError, match="multiple of 2 processes"):
+            Trainer(_hparams(tmp_path, model_parallel=value,
+                             distributed=True), device="cpu")
+        return
+    trainer = Trainer(_hparams(tmp_path, **{key: value}), device="cpu")
+    if key == "sharded_checkpoints":
+        assert trainer.ckpt.backend == "sharded" and trainer.ckpt.SUFFIX == ""
+        return
+    assert trainer.hparams["distributed"] is True
+    assert trainer.mesh is None and not trainer.multiprocess
+    assert trainer.step_fn is not None and trainer.is_main
 
 
 @pytest.mark.parametrize("flags", [["--distributed"], ["--data_parallel"],
                                    ["--model_parallel", "2"]],
                          ids=["flags0", "flags1", "flags3"])
-def test_cli_refuses_what_is_not_ported(tmp_path, flags, capsys):
+def test_cli_refuses_what_is_not_ported(tmp_path, flags, capsys,
+                                        monkeypatch):
+    """The multi-device flags reach the trainer's hparams (once exit 2):
+    ``--data_parallel`` as ``distributed``; without a process group and
+    with at most one GPU the CLI trains in this process, spawning none."""
+    import speakerverification_tpu_torch.cli.main as cli
+    import speakerverification_tpu_torch.training.trainer as trainer_mod
+    seen = {}
+
+    class FakeTrainer:
+        def __init__(self, hparams, device=None):
+            seen.update(hparams)
+
+        def fit(self):
+            return {"min_loss": 0.0}
+
+    monkeypatch.setattr(trainer_mod, "Trainer", FakeTrainer)
+    monkeypatch.setattr(cli, "spawn_ranks", lambda *a: pytest.fail("spawned"))
+    _corpus(tmp_path)
     cfg = tmp_path / "c.yaml"
     cfg.write_text(_yaml(tmp_path, tmp_path / "t.txt"))
-    assert cli_main(["--do_train", *flags, "--config", str(cfg)]) == 2
-    assert "not ported" in capsys.readouterr().err
+    assert cli_main(["--do_train", *flags, "--config", str(cfg)]) == 0
+    if flags[0] == "--model_parallel":
+        assert seen["model_parallel"] == 2 and not seen.get("distributed")
+    else:
+        assert seen["distributed"] is True and "data_parallel" not in seen
+    assert "[DONE]" in capsys.readouterr().out
 
 
 def test_trainer_runs_on_cuda_unless_asked_for_the_cpu(tmp_path):
