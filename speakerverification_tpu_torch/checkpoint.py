@@ -24,9 +24,9 @@ and is reported; a present subtree that shares no leaf names with the
 model's, or a load that restores nothing, raises. A checkpoint's
 subtrees the template lacks (the ``loss`` head, for an engine that embeds
 without one) are read and reported, not restored. The port's own
-sharded checkpoint directories (``training/checkpoint_sharded.py``) load
-through the same functions, assembled into the msgpack tree; the JAX
-package's orbax directories are refused by name.
+sharded checkpoint directories (``training/checkpoint_sharded.py``) and
+the JAX package's orbax directories (``training/orbax_read.py``) load
+through the same functions, assembled into the msgpack tree.
 """
 
 from __future__ import annotations
@@ -316,19 +316,21 @@ def msgpack_serialize(tree: Any) -> bytes:
 # ----------------------------------------------------------------------
 # files
 # ----------------------------------------------------------------------
-def _refuse_directory(path: Path) -> None:
-    """A directory that is not the port's sharded checkpoint raises;
-    the JAX package's orbax directories are refused by name."""
-    from speakerverification_tpu_torch.training.checkpoint_sharded import (
-        is_orbax_checkpoint,
+def _read_directory(path: Path, params_only: bool, ema: bool) -> Any:
+    """The raw tree of a checkpoint directory: the port's sharded format
+    or the JAX package's orbax directory; anything else raises."""
+    from speakerverification_tpu_torch.training import (
+        checkpoint_sharded as sharded,
     )
-    if is_orbax_checkpoint(path):
-        raise ValueError(f"{path} is an orbax sharded checkpoint of the JAX "
-                         "package (training/checkpoint_sharded.py): the port "
-                         "does not read orbax's store; save a msgpack "
-                         "checkpoint instead")
+    if sharded.is_sharded_checkpoint(path):
+        return sharded.raw_tree(path, params_only=params_only)
+    if sharded.is_orbax_checkpoint(path):
+        from speakerverification_tpu_torch.training import orbax_read
+        keep = (orbax_read.keep_params if params_only
+                else orbax_read.keep_ema if ema else None)
+        return orbax_read.read_orbax(path, keep=keep)
     raise ValueError(f"{path} is a directory but not a sharded checkpoint "
-                     "of the port")
+                     "of the port nor an orbax checkpoint of the JAX package")
 
 
 def save_checkpoint(path: str | Path, tree: Any,
@@ -343,19 +345,17 @@ def save_checkpoint(path: str | Path, tree: Any,
     return path
 
 
-def load_checkpoint(path: str | Path, params_only: bool = False) -> Any:
-    """The raw tree of a msgpack checkpoint, or of the port's sharded
-    checkpoint directory (``training/checkpoint_sharded.py``) assembled
-    into the same tree; ``params_only`` spares a directory's optimizer
-    state the read."""
+def load_checkpoint(path: str | Path, params_only: bool = False,
+                    ema: bool = False) -> Any:
+    """The raw tree of a msgpack checkpoint, of the port's sharded
+    checkpoint directory (``training/checkpoint_sharded.py``) or of the
+    JAX package's orbax directory (``training/orbax_read.py``), the
+    directories assembled into the msgpack tree. ``params_only`` spares a
+    directory's optimizer state the read; ``ema`` reads an orbax
+    directory's ``ema`` subtree and batch stats only."""
     path = Path(path)
     if path.is_dir():
-        from speakerverification_tpu_torch.training import (
-            checkpoint_sharded as sharded,
-        )
-        if not sharded.is_sharded_checkpoint(path):
-            _refuse_directory(path)
-        return sharded.raw_tree(path, params_only=params_only)
+        return _read_directory(path, params_only, ema)
     return msgpack_restore(path.read_bytes())
 
 
@@ -496,7 +496,7 @@ def load_ema_params(path: str | Path, state: dict) -> Optional[dict]:
     """``state`` with the checkpoint's EMA weights (``optim.track_ema``)
     as params and its batch statistics, or None when the checkpoint was
     trained without ``optimizer.ema_decay``."""
-    raw = load_checkpoint(path)
+    raw = load_checkpoint(path, ema=True)
     ema = _find_ema(raw.get("opt_state", {}))
     if ema is None:
         return None

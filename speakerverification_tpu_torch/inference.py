@@ -109,8 +109,8 @@ def run_dirs(hparams: Mapping, create: bool = True) -> dict:
 def _select_weights(hparams: Mapping, model_dir: Path) -> Optional[Path]:
     """``initial_model_infer`` > ``best_state`` > ``last_state`` > the
     newest ``model_state_*``. A name that exists both as a msgpack file
-    and as an orbax directory gives the newer of the two (the loader
-    then refuses a directory by name)."""
+    and as an orbax directory gives the newer of the two; either loads
+    (``checkpoint.load_checkpoint``)."""
     cand = hparams.get("initial_model_infer")
     if cand and Path(str(cand)).exists():
         return Path(str(cand))

@@ -268,8 +268,8 @@ class CheckpointManager:
         return self.run_dir / (name + self.SUFFIX)
 
     def _existing(self, name: str) -> Optional[Path]:
-        """The newer of ``name.msgpack`` and an orbax directory ``name``
-        (which the loader then refuses by name)."""
+        """The newer of ``name.msgpack`` and a directory ``name`` (the
+        port's sharded format or a JAX orbax directory; both load)."""
         cands = [p for p in (self.run_dir / (name + ".msgpack"),
                              self.run_dir / name) if p.exists()]
         if not cands:

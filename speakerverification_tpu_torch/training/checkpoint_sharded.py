@@ -9,8 +9,9 @@ holds and nobody gathers anything.
 * The directory is a ``torch.distributed.checkpoint`` store (``.metadata``
   and ``__<rank>_0.distcp`` files) plus ``svtorch_sharded.json``, the
   marker that tells it from the JAX package's orbax directories (which
-  the port refuses by name): the step, each leaf's shape, dtype and row
-  blocks, and the optimizer state's structure with its scalars.
+  the port reads through ``training/orbax_read.py``): the step, each
+  leaf's shape, dtype and row blocks, and the optimizer state's
+  structure with its scalars.
 * Replicated leaves are written once, by rank 0; a row-sharded leaf
   (``TrainState.shards``) as one entry per row block,
   ``<path>@rows=<lo>:<hi>``, by the ranks of the first data row.
@@ -80,7 +81,7 @@ def _barrier() -> None:
 
 def is_orbax_checkpoint(path: str | Path) -> bool:
     """True for the JAX package's orbax directories (by their marker
-    files), which the port does not read."""
+    files), which ``training/orbax_read.py`` reads."""
     p = Path(path)
     return p.is_dir() and ((p / "_CHECKPOINT_METADATA").exists()
                            or (p / "manifest.ocdbt").exists()

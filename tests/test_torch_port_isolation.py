@@ -60,14 +60,17 @@ def test_port_imports_no_jax_and_no_jax_package():
                      "evaluation.benchmark", "parallel", "parallel.mesh",
                      "parallel.multihost", "parallel.dp", "parallel.tp",
                      "parallel.collectives", "losses.sharded",
-                     "training.checkpoint_sharded"):
+                     "training.checkpoint_sharded", "compat",
+                     "compat.torch_port", "compat.torch_export",
+                     "training.orbax_read"):
         assert f"speakerverification_tpu_torch.{expected}" in res["modules"]
     loaded = res["loaded"]
-    # the GPU host has neither msgpack, ml_dtypes, PyYAML nor matplotlib:
-    # the codec is the port's own, the CLI reads YAML lazily and the
-    # plots import matplotlib when they draw
+    # the GPU host has neither msgpack, ml_dtypes, PyYAML, matplotlib,
+    # orbax, tensorstore nor zstandard: the codec, the orbax reader and
+    # the zstd decoder are the port's own, the CLI reads YAML lazily and
+    # the plots import matplotlib when they draw
     for banned in ("jax", "flax", "optax", "msgpack", "ml_dtypes", "yaml",
-                   "matplotlib"):
+                   "matplotlib", "orbax", "tensorstore", "zstandard"):
         assert not [m for m in loaded
                     if m == banned or m.startswith(banned + ".")], banned
     assert not [m for m in loaded if m == "speakerverification_tpu"

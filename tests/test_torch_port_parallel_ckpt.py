@@ -5,7 +5,9 @@ asynchronously, read into a data 2 x model 2 layout and into one
 process, and kept by ``CheckpointManager(backend="sharded")``. One
 group runs every case once (``_torch_port_parallel_workers.case_ckpt``).
 
-The JAX package's orbax directories stay refused by name.
+A directory marked as the JAX package's orbax store that is not one
+(no tree metadata) is refused, naming orbax; real ones are read by
+``training/orbax_read.py`` (``tests/test_torch_port_orbax.py``).
 """
 
 import json
