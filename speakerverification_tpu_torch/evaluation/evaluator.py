@@ -17,6 +17,7 @@ whitespace-delimited; a first line that does not parse is a header.
 
 from __future__ import annotations
 
+import contextlib
 import csv
 from pathlib import Path
 from typing import Callable, Mapping, Optional, Sequence
@@ -39,6 +40,7 @@ from speakerverification_tpu_torch.parallel.multihost import (
     is_multiprocess,
     process_allgather,
 )
+from speakerverification_tpu_torch.utils import tracing
 
 __all__ = ["sniff_has_label", "parse_trials", "extract_embeddings",
            "evaluate_from_list", "prepare_cohorts", "prepare_embeddings",
@@ -118,11 +120,16 @@ def extract_embeddings(embed_fn: Callable, files: Sequence[str],
     loader = EvalDataLoader(files, audio_spec, num_eval=num_eval,
                             batch_size=batch_size, num_workers=num_workers)
     out = []
-    for waves, paths in loader:
-        B, E, T = waves.shape
-        emb = torch.as_tensor(embed_fn(waves.reshape(B * E, T)))
-        # drop the rows the loader padded to keep the batch shape fixed
-        out.append(emb.reshape(B, E, -1)[:len(paths)])
+    with contextlib.closing(iter(loader)) as batches:
+        for index in range(len(loader)):
+            # the wait for the loader's next batch, a loader.wait span
+            # while a profiler runs
+            with tracing.span("loader.wait", batch=index):
+                waves, paths = next(batches)
+            B, E, T = waves.shape
+            emb = torch.as_tensor(embed_fn(waves.reshape(B * E, T)))
+            # drop the rows the loader padded to keep the batch shape fixed
+            out.append(emb.reshape(B, E, -1)[:len(paths)])
     return torch.cat(out, dim=0)
 
 

@@ -70,6 +70,7 @@ from speakerverification_tpu_torch.quant import (
 from speakerverification_tpu_torch.training.train_step import (
     eval_dp_devices,
 )
+from speakerverification_tpu_torch.utils import tracing
 from speakerverification_tpu_torch.weights import (
     cast_copy,
     init_weights_,
@@ -161,7 +162,13 @@ def make_eval_embed_fn(model: nn.Module, normalize: bool = True,
     the embeddings come back in order on the model's device. Eval-mode
     embedding is per-row math, so the result is the one-device result;
     a batch that does not divide is padded by repeating rows (real
-    utterances, not silence) and cut back."""
+    utterances, not silence) and cut back.
+
+    While a profiler runs (``utils/tracing.py``), each device's copy and
+    dequantization is an ``engine.h2d`` span and its forward an
+    ``engine.forward`` span, both with CUDA events: a pageable copy
+    holds the host until the stream's earlier work is done, so the
+    copy's own time is the events', not the span's on the host."""
     if compute_dtype is not None:
         model = cast_copy(model, compute_dtype)
     model.eval()
@@ -169,10 +176,12 @@ def make_eval_embed_fn(model: nn.Module, normalize: bool = True,
     module = EvalEmbed(model, normalize).eval()
 
     def run(m: nn.Module, dev, wave) -> torch.Tensor:
-        wave = torch.as_tensor(wave).to(dev, non_blocking=True)
-        if wave.dtype == torch.int16:
-            wave = wave.float() * (1.0 / 32768.0)
-        return m(wave)
+        with tracing.span("engine.h2d", device=dev):
+            wave = torch.as_tensor(wave).to(dev, non_blocking=True)
+            if wave.dtype == torch.int16:
+                wave = wave.float() * (1.0 / 32768.0)
+        with tracing.span("engine.forward", device=dev):
+            return m(wave)
 
     if devices is None or len(devices) < 2:
         @torch.inference_mode()

@@ -36,6 +36,7 @@
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import queue
@@ -54,6 +55,7 @@ from speakerverification_tpu_torch.evaluation.bank import (
     ShardedSpeakerBank,
     SpeakerBank,
 )
+from speakerverification_tpu_torch.utils import tracing
 
 __all__ = ["DynamicBatcher", "serve", "make_serving_app", "warm_up",
            "bank_device_list"]
@@ -118,7 +120,15 @@ class DynamicBatcher:
     ``embed`` maps ``[N, T] -> [N, D]`` (numpy or tensor) with
     ``N = batch_utts * num_eval`` on every call. ``submit`` is
     thread-safe and returns a Future resolving to the request's
-    ``[num_eval, D]`` crop embeddings."""
+    ``[num_eval, D]`` crop embeddings.
+
+    While a profiler runs (``utils/tracing.py``) each batch is a
+    ``batcher.batch`` span (its trace id the batch's number; ``blocked``
+    when the worker found the queue empty) holding
+    ``batcher.fill``, ``batcher.assemble``, the ``embed`` call,
+    ``batcher.copy_back`` and ``batcher.reply``, and each request a
+    ``batcher.queued`` span from its submit to the worker taking it (its
+    trace id the request's number, its parent the batch's span)."""
 
     def __init__(self, embed: Callable, batch_utts: int, num_eval: int,
                  samples: int, max_wait_ms: float = 5.0,
@@ -138,6 +148,8 @@ class DynamicBatcher:
         self._closed = False
         self.batches_run = 0
         self.utts_served = 0
+        self._requests = itertools.count()
+        self._batches = itertools.count()
         self._thread = threading.Thread(target=self._worker, daemon=True,
                                         name="svtorch-batcher")
         self._thread.start()
@@ -155,7 +167,10 @@ class DynamicBatcher:
             crops = np.clip(np.round(crops * 32768.0),
                             -32768, 32767).astype(np.int16)
         fut: Future = Future()
-        self._q.put((crops, fut))
+        # (request number, submit time) for the batcher.queued span
+        stamp = ((next(self._requests), time.time_ns())
+                 if tracing.enabled() else None)
+        self._q.put((crops, fut, stamp))
         return fut
 
     def close(self) -> None:
@@ -166,10 +181,22 @@ class DynamicBatcher:
 
     def _worker(self) -> None:
         while True:
+            blocked = tracing.enabled() and self._q.empty()
             head = self._q.get()
             if head is None:
                 return
-            batch = [head]
+            with tracing.span("batcher.batch", trace=next(self._batches),
+                              blocked=blocked) as span:
+                batch, closed = self._fill(head, span.id)
+                self._run(batch)
+            if closed:
+                return
+
+    def _fill(self, head, batch_span) -> tuple:
+        """``head`` and the requests that come within ``max_wait``, up to
+        ``batch_utts``; and whether the batcher was closed meanwhile."""
+        batch = [_taken(head, batch_span)]
+        with tracing.span("batcher.fill"):
             deadline = time.monotonic() + self.max_wait
             while len(batch) < self.batch_utts:
                 remaining = deadline - time.monotonic()
@@ -180,36 +207,49 @@ class DynamicBatcher:
                 except queue.Empty:
                     break
                 if item is None:
-                    self._run(batch)
-                    return
-                batch.append(item)
-            self._run(batch)
+                    return batch, True
+                batch.append(_taken(item, batch_span))
+        return batch, False
 
     def _run(self, batch) -> None:
         n = len(batch)
         try:
-            dtype = np.int16 if self.transport == "int16" else np.float32
-            waves = np.empty((self.batch_utts * self.num_eval, self.samples),
-                             dtype)
-            for i, (crops, _) in enumerate(batch):
-                waves[i * self.num_eval:(i + 1) * self.num_eval] = crops
-            if n < self.batch_utts:
-                # pad slots repeat request 0's crops; sliced away below
-                waves[n * self.num_eval:] = np.tile(
-                    batch[0][0], (self.batch_utts - n, 1))
+            with tracing.span("batcher.assemble"):
+                dtype = (np.int16 if self.transport == "int16"
+                         else np.float32)
+                waves = np.empty((self.batch_utts * self.num_eval,
+                                  self.samples), dtype)
+                for i, (crops, _) in enumerate(batch):
+                    waves[i * self.num_eval:(i + 1) * self.num_eval] = crops
+                if n < self.batch_utts:
+                    # pad slots repeat request 0's crops; sliced away below
+                    waves[n * self.num_eval:] = np.tile(
+                        batch[0][0], (self.batch_utts - n, 1))
             emb = self.embed(waves)
-            if isinstance(emb, torch.Tensor):
-                emb = emb.float().cpu().numpy()
-            emb = np.asarray(emb, np.float32).reshape(
-                self.batch_utts, self.num_eval, -1)
+            with tracing.span("batcher.copy_back"):
+                if isinstance(emb, torch.Tensor):
+                    emb = emb.float().cpu().numpy()
+                emb = np.asarray(emb, np.float32).reshape(
+                    self.batch_utts, self.num_eval, -1)
             self.batches_run += 1
             self.utts_served += n
-            for i, (_, fut) in enumerate(batch):
-                fut.set_result(emb[i])
+            with tracing.span("batcher.reply"):
+                for i, (_, fut) in enumerate(batch):
+                    fut.set_result(emb[i])
         except Exception as exc:
             for _, fut in batch:
                 if not fut.done():
                     fut.set_exception(exc)
+
+
+def _taken(item, batch_span) -> tuple:
+    """A queued request as the worker takes it: ``(crops, future)``, its
+    wait recorded as a ``batcher.queued`` span of the batch's."""
+    crops, fut, stamp = item
+    if stamp is not None:
+        tracing.record("batcher.queued", stamp[1], time.time_ns(),
+                       parent=batch_span, trace=stamp[0])
+    return crops, fut
 
 
 def _decode_audio_spec(obj: Mapping, spec: Mapping,

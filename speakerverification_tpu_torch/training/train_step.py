@@ -42,6 +42,10 @@ On CUDA the step runs with ``torch.backends.cudnn.benchmark`` on
 (:func:`timed_conv_plans`), as XLA autotunes the JAX step's convolutions.
 :func:`eval_dp_devices` is the policy of row-split eval extraction
 (``inference.make_eval_embed_fn(devices=...)``).
+
+While a profiler runs (``utils/tracing.py``), a step is a ``train.step``
+span holding a ``train.forward`` and a ``train.backward`` span for each
+microbatch and one ``train.optimizer`` span, the three with CUDA events.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from speakerverification_tpu_torch.parallel.collectives import (
     mean_over_group_,
 )
 from speakerverification_tpu_torch.training.state import TrainState
+from speakerverification_tpu_torch.utils import tracing
 
 __all__ = ["make_train_step", "timed_conv_plans", "eval_dp_devices"]
 
@@ -105,23 +110,31 @@ def make_train_step(model, tx, compute_dtype: Optional[torch.dtype] = None,
         names = list(state.params)
         masters = [state.params[k] for k in names]
         with timed_conv_plans(wave.device):
-            if compute_dtype is None:
-                loss, prec1 = model(wave, label, rng)
-            else:
-                cast = {k: p.to(compute_dtype) if p.is_floating_point()
-                        else p for k, p in zip(names, masters)}
-                loss, prec1 = functional_call(model, cast, (wave, label),
-                                              {"rng": rng}, strict=False)
-            loss = loss.float()
-            grads = torch.autograd.grad(loss, masters, allow_unused=True)
-        # a parameter the loss does not reach gets a zero gradient, as
-        # jax.grad gives it
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(masters, grads)]
+            with tracing.span("train.forward", device=wave.device):
+                if compute_dtype is None:
+                    loss, prec1 = model(wave, label, rng)
+                else:
+                    cast = {k: p.to(compute_dtype) if p.is_floating_point()
+                            else p for k, p in zip(names, masters)}
+                    loss, prec1 = functional_call(
+                        model, cast, (wave, label), {"rng": rng},
+                        strict=False)
+                loss = loss.float()
+            with tracing.span("train.backward", device=wave.device):
+                grads = torch.autograd.grad(loss, masters,
+                                            allow_unused=True)
+                # a parameter the loss does not reach gets a zero
+                # gradient, as jax.grad gives it
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(masters, grads)]
         return loss.detach(), prec1.detach(), dict(zip(names, grads))
 
     def step(state: TrainState, wave: torch.Tensor, label: torch.Tensor,
              lr: float, rng: Optional[torch.Generator] = None, *aug_args):
+        with tracing.span("train.step"):
+            return _step(state, wave, label, lr, rng, *aug_args)
+
+    def _step(state, wave, label, lr, rng, *aug_args):
         model.train()
         if augment_fn is not None:
             if rng is None:
@@ -167,10 +180,11 @@ def make_train_step(model, tx, compute_dtype: Optional[torch.dtype] = None,
                               *state.batch_stats.values()], data_group)
             loss, prec1 = metrics[0], metrics[1]
 
-        opt_state = set_learning_rate(state.opt_state, lr)
-        params = {k: p.detach() for k, p in state.params.items()}
-        updates, opt_state = tx.update(grads, opt_state, params)
-        apply_updates(params, updates)
+        with tracing.span("train.optimizer", device=wave.device):
+            opt_state = set_learning_rate(state.opt_state, lr)
+            params = {k: p.detach() for k, p in state.params.items()}
+            updates, opt_state = tx.update(grads, opt_state, params)
+            apply_updates(params, updates)
         state.opt_state = opt_state
         state.step += 1
         return state, {"loss": loss, "prec1": prec1}

@@ -26,9 +26,11 @@ The model runs on CUDA unless the caller asks for the CPU. ``profile:
 true`` with a ``profile_dir`` runs the first epoch under
 ``torch.profiler`` (the host, and the card when training on one) and
 writes it as chrome-trace JSON to ``profile_dir/trace.json``, where the
-JAX trainer writes a TensorBoard trace. The loader reads packed shards
-when ``dataloader_options.shards`` names a pack (``cli.dataprep
---pack``).
+JAX trainer writes a TensorBoard trace; the trace holds the train step's
+spans (``utils/tracing.py``) as ranges, and the log a line of the step's
+host time and, on a card, its phases' stream time. The loader reads
+packed shards when ``dataloader_options.shards`` names a pack
+(``cli.dataprep --pack``).
 
 Several GPUs: with ``distributed`` (or its alias ``data_parallel``) and a
 process group configured (``parallel.maybe_initialize_distributed``:
@@ -100,6 +102,7 @@ from speakerverification_tpu_torch.training.train_step import (
     eval_dp_devices,
     make_train_step,
 )
+from speakerverification_tpu_torch.utils import tracing
 
 __all__ = ["Trainer", "device_augmentation", "run_dirs"]
 
@@ -148,6 +151,22 @@ def device_augmentation(hparams: Mapping, loader, device):
             w = env_fn(w, b, r)
         return time_augment(w, r, b, mode=t_mode, sample_rate=t_sr)
     return augment, banks, source
+
+
+def _phase_line(spans: list) -> str:
+    """The profiled epoch's mean host time a step and, on a card, each
+    phase's stream time a step (its CUDA events), from its spans."""
+    steps = [s for s in spans if s.name == "train.step"]
+    if not steps:
+        return "[INFO] no train step was profiled"
+    line = (f"[INFO] {len(steps)} profiled steps: "
+            f"{sum(s.ms for s in steps) / len(steps):.2f} ms a step on the "
+            f"host")
+    for phase in ("forward", "backward", "optimizer"):
+        ms = [s.device_ms for s in spans if s.name == f"train.{phase}"]
+        if ms and None not in ms:
+            line += f", {phase} {sum(ms) / len(steps):.2f} ms of stream"
+    return line
 
 
 class Trainer:
@@ -371,6 +390,8 @@ class Trainer:
             self._profile_dir.mkdir(parents=True, exist_ok=True)
             prof.export_chrome_trace(str(self._profile_dir / "trace.json"))
             print(f"[INFO] profiler trace written to {self._profile_dir}")
+            print(_phase_line(tracing.spans()))
+            tracing.clear()     # the trace holds the spans' ranges
         if self.is_main:
             print(f"[E{epoch:03d}] loss {loss:.4f} acc {acc:5.2f}% lr "
                   f"{self._lr(epoch, 0, (epoch - 1) * self.steps_per_epoch):.2e}"

@@ -304,8 +304,10 @@ def test_trainer_profile_writes_a_chrome_trace(tmp_path, capsys):
                                 "num_workers": 1},
          "profile": True, "profile_dir": str(tmp_path / "prof")}
     Trainer(h, device="cpu").fit()
-    assert f"profiler trace written to {tmp_path / 'prof'}" in \
-        capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert f"profiler trace written to {tmp_path / 'prof'}" in out
+    # the step's spans read back: host time, no stream time on the CPU
+    assert "profiled steps: " in out and "of stream" not in out
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
     names = {e.get("name") for e in trace["traceEvents"]
              if e.get("cat") == "cpu_op"}
