@@ -1023,7 +1023,7 @@ def serve_over_http(tag: str, model_h: dict, bn_seed: int,
     log(f"[{tag}] /healthz ok; {len(replies)} concurrent /embed: dim {dim}, unit "
         f"norm, finite, {t_embed:.3f} s wall; /score {score['score']:.6f}")
     log(f"[{tag}] launches in the served window: {counts} over {batches} "
-        f"batches of {BATCH_UTTS}x{num_eval} crops")
+        f"batches of up to {BATCH_UTTS}x{num_eval} crops")
     if counts["mel_frontend"] != batches or batches < 2:
         fail(f"path {tag}: mel kernel launched {counts['mel_frontend']} times "
              f"for {batches} batches")
@@ -1046,10 +1046,16 @@ def serve_over_http(tag: str, model_h: dict, bn_seed: int,
         f"{other.max():.7f} {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"path {tag}: a served embedding is not its request's")
+    # /score's two requests ride in a batch of their own, at its rows:
+    # held against the CPU plain path on a batch of that shape.
     # |e1.e2 - e1'.e2'| <= |e1 - e1'| + |e2 - e2'| for unit crop
-    # embeddings; twice that for the other batch the score rode in
-    score_ref = _pair_cosine(ref[0], ref[1])
-    tol = 4 * dist
+    # embeddings; twice that, the served batch and the compared one
+    # being two runs on the card
+    pair, pair_dist = compare_with_cpu(
+        engine, to_wire(np.concatenate(crops[:2])), tag)
+    pair = pair.reshape(2, num_eval, -1)
+    score_ref = _pair_cosine(pair[0], pair[1])
+    tol = 4 * pair_dist
     ok = abs(score["score"] - score_ref) <= tol
     log(f"[{tag}] /score {score['score']:.7f} vs CPU pair cosine {score_ref:.7f}: "
         f"diff {abs(score['score'] - score_ref):.3e} (tol {tol:.3e}) "

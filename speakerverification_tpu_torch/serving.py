@@ -2,11 +2,10 @@
 
 - :class:`DynamicBatcher` — concurrent requests enqueue ``[num_eval, T]``
   crop stacks; a dispatcher thread coalesces up to ``batch_utts``
-  utterances (or flushes after ``max_wait_ms``) into one fixed-shape
-  ``[batch_utts * num_eval, T]`` batch. Short batches are padded with
-  rows repeating request 0. By default the batch crosses to the device
-  as 16-bit PCM (``serving: {transport: int16}``) and is dequantized
-  there.
+  utterances (or flushes after ``max_wait_ms``) into one
+  ``[n * num_eval, T]`` batch of the ``n`` requests it took, no rows
+  padded. By default the batch crosses to the device as 16-bit PCM
+  (``serving: {transport: int16}``) and is dequantized there.
 - :func:`make_serving_app` / :func:`serve` — a ``ThreadingHTTPServer``::
 
       GET  /healthz   -> {"status": "ok", model, num_eval, ...}
@@ -115,17 +114,20 @@ class _RWLock:
 
 
 class DynamicBatcher:
-    """Coalesce concurrent embedding requests into fixed-shape batches.
+    """Coalesce concurrent embedding requests into batches.
 
     ``embed`` maps ``[N, T] -> [N, D]`` (numpy or tensor) with
-    ``N = batch_utts * num_eval`` on every call. ``submit`` is
-    thread-safe and returns a Future resolving to the request's
-    ``[num_eval, D]`` crop embeddings.
+    ``N = n * num_eval`` for the ``n <= batch_utts`` requests a batch
+    carries. ``submit`` is thread-safe and returns a Future resolving to
+    the request's ``[num_eval, D]`` crop embeddings. ``batches_run``,
+    ``utts_served`` and ``rows_run`` count the batches, requests and rows
+    sent to ``embed``.
 
     While a profiler runs (``utils/tracing.py``) each batch is a
     ``batcher.batch`` span (its trace id the batch's number; ``blocked``
     when the worker found the queue empty) holding
-    ``batcher.fill``, ``batcher.assemble``, the ``embed`` call,
+    ``batcher.fill``, ``batcher.assemble`` (``utts``, ``rows``: the
+    batch's requests and rows), the ``embed`` call,
     ``batcher.copy_back`` and ``batcher.reply``, and each request a
     ``batcher.queued`` span from its submit to the worker taking it (its
     trace id the request's number, its parent the batch's span)."""
@@ -148,6 +150,7 @@ class DynamicBatcher:
         self._closed = False
         self.batches_run = 0
         self.utts_served = 0
+        self.rows_run = 0
         self._requests = itertools.count()
         self._batches = itertools.count()
         self._thread = threading.Thread(target=self._worker, daemon=True,
@@ -213,26 +216,23 @@ class DynamicBatcher:
 
     def _run(self, batch) -> None:
         n = len(batch)
+        rows = n * self.num_eval
         try:
-            with tracing.span("batcher.assemble"):
+            with tracing.span("batcher.assemble", utts=n, rows=rows):
                 dtype = (np.int16 if self.transport == "int16"
                          else np.float32)
-                waves = np.empty((self.batch_utts * self.num_eval,
-                                  self.samples), dtype)
+                waves = np.empty((rows, self.samples), dtype)
                 for i, (crops, _) in enumerate(batch):
                     waves[i * self.num_eval:(i + 1) * self.num_eval] = crops
-                if n < self.batch_utts:
-                    # pad slots repeat request 0's crops; sliced away below
-                    waves[n * self.num_eval:] = np.tile(
-                        batch[0][0], (self.batch_utts - n, 1))
             emb = self.embed(waves)
             with tracing.span("batcher.copy_back"):
                 if isinstance(emb, torch.Tensor):
                     emb = emb.float().cpu().numpy()
                 emb = np.asarray(emb, np.float32).reshape(
-                    self.batch_utts, self.num_eval, -1)
+                    n, self.num_eval, -1)
             self.batches_run += 1
             self.utts_served += n
+            self.rows_run += rows
             with tracing.span("batcher.reply"):
                 for i, (_, fut) in enumerate(batch):
                     fut.set_result(emb[i])
@@ -518,14 +518,17 @@ def make_serving_app(engine, hparams: Mapping,
 
 
 def warm_up(engine, batcher: DynamicBatcher) -> None:
-    """Before traffic: one batch of silence at the serving shape and wire
-    format through the engine's float path builds the kernels and
-    allocates the buffers. An int8 engine calibrates on its first real
-    batch instead: scales calibrated on silence describe silence, and
-    speech would saturate them."""
+    """Before traffic: a batch of silence at every size the batcher can
+    send, ``batch_utts`` requests down to one, in its wire format
+    through the engine's float path builds the kernels, picks each
+    size's convolution plans and allocates the buffers (largest first,
+    so the allocator's blocks fit the largest). An int8 engine calibrates
+    on its first real batch instead: scales calibrated on silence
+    describe silence, and speech would saturate them."""
     dtype = np.int16 if batcher.transport == "int16" else np.float32
-    engine.warm_up(np.zeros((batcher.batch_utts * batcher.num_eval,
-                             batcher.samples), dtype))
+    for n in range(batcher.batch_utts, 0, -1):
+        engine.warm_up(np.zeros((n * batcher.num_eval, batcher.samples),
+                                dtype))
 
 
 def serve(hparams: Mapping, host: str = "0.0.0.0", port: int = 8008,

@@ -179,6 +179,8 @@ def test_serving_app_embed_and_score(pair, tmp_path):
 
 
 def test_batcher_pads_with_request_zero():
+    """A lone request reaches ``embed`` at its own rows: nothing pads the
+    batch up to ``batch_utts``."""
     seen = []
 
     def fake(waves):
@@ -191,9 +193,9 @@ def test_batcher_pads_with_request_zero():
         crops = np.arange(12, dtype=np.float32).reshape(2, 6)
         out = b.submit(crops).result(timeout=10)
         np.testing.assert_array_equal(out, crops[:, :4])
-        assert seen[0].shape == (6, 6)
-        np.testing.assert_array_equal(seen[0][2:4], crops)
-        np.testing.assert_array_equal(seen[0][4:6], crops)
+        assert len(seen) == 1 and seen[0].shape == (2, 6)
+        np.testing.assert_array_equal(seen[0], crops)
+        assert (b.batches_run, b.utts_served, b.rows_run) == (1, 1, 2)
     finally:
         b.close()
 
@@ -220,6 +222,8 @@ def _crops(seed, shape=(2, 64)):
 
 
 def test_batcher_coalesces_into_fixed_shape_batches():
+    """Seven concurrent requests under ``batch_utts=4`` come as one batch
+    of four and one of three, each at the rows it carries."""
     from concurrent.futures import ThreadPoolExecutor
     fake = _FakeEmbed()
     b = tserving.DynamicBatcher(fake, batch_utts=4, num_eval=2, samples=64,
@@ -229,12 +233,30 @@ def test_batcher_coalesces_into_fixed_shape_batches():
         with ThreadPoolExecutor(8) as ex:
             futs = list(ex.map(b.submit, crops))
         results = [f.result(timeout=10) for f in futs]
-        assert {c[0] for c in fake.calls} == {(8, 64)}
+        assert sorted(c[0] for c in fake.calls) == [(6, 64), (8, 64)]
         assert len(fake.calls) == 2 and b.utts_served == 7
+        assert b.rows_run == b.utts_served * b.num_eval == 14
         for c, r in zip(crops, results):
             np.testing.assert_allclose(r, fake(c).numpy(), rtol=1e-6)
     finally:
         b.close()
+
+
+@pytest.mark.parametrize("transport", ["int16", "float32"])
+def test_warm_up_runs_every_batch_size(transport):
+    """``warm_up`` sends the engine one batch of each size the batcher
+    can send, ``batch_utts`` requests down to one, in its wire format."""
+    sent = []
+    engine = SimpleNamespace(warm_up=lambda w: sent.append((w.shape,
+                                                           w.dtype)))
+    b = tserving.DynamicBatcher(_FakeEmbed(), batch_utts=3, num_eval=2,
+                                samples=64, transport=transport)
+    try:
+        tserving.warm_up(engine, b)
+    finally:
+        b.close()
+    dtype = np.int16 if transport == "int16" else np.float32
+    assert sent == [((6, 64), dtype), ((4, 64), dtype), ((2, 64), dtype)]
 
 
 def test_batcher_int16_wire_errors_and_close():

@@ -226,6 +226,10 @@ def test_batcher_spans():
             b = batches[k.parent]
             assert b.start_ns <= k.start_ns <= k.end_ns <= b.end_ns
             assert k.trace == b.trace
+    # each assembly names the requests and rows its batch carries
+    for a in got["batcher.assemble"]:
+        mine = [q for q in queued if q.parent == a.parent]
+        assert a.attrs == {"utts": len(mine), "rows": 2 * len(mine)}
     assert all(s.device_ms is None for s in spans)
     _assert_ranges(prof, [s for s in spans if s.name != "batcher.queued"])
 
